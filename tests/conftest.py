@@ -44,3 +44,9 @@ if not os.path.exists(_SO):
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (a hand-written kernel); skips without one"
+    )
