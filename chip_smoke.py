@@ -3,11 +3,22 @@
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
-  1. device and build: the card's name and power limit, then the CUDA
-     kernels built from this checkout's sources (build seconds, ptxas info);
+  1. device and build: the card's name and power limit, then the two CUDA
+     libraries (csrc/bundle_head.cu, csrc/plane_conv.cu) built from this
+     checkout's sources, both nvcc runs started together (build seconds,
+     ptxas info);
   2. the bundle-head kernel against its plain PyTorch version on the card
      at the dtu_eval head shapes (N = 245,760 samples, V = 3; V = 2; a
-     ragged N), in float32 and bf16, with both times;
+     ragged N), in float32 and bf16, with both times and the bound;
+  2b. the conv microbench path (gdb_nerf_tpu_torch/tools/microbench_conv.py)
+     driven in-process, with the plane-conv kernels' launch counts set to 0
+     before it and read after: its check (float32 and bf16, against cuDNN)
+     and its two benches (a chain of 4 C8 3x3 convs and fpnprim, 512x640
+     bf16); then conv1, convchain and fpnprim each against its plain
+     version in float32 and bf16 at the full size (C8, 512x640), at the
+     check's own shapes and inputs, and at a ragged shape, with the
+     kernel's, the plain version's and cuDNN's times and the bound at the
+     full size;
   3. the golden fixture (tests/golden/dtu_eval_golden.npz) rendered through
      the port in float32 with TF32 off: > 40 dB against the frozen render,
      the MVS depth check of tests/test_golden_protocol.py, and the kernel
@@ -20,7 +31,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   5. one JSON line of kernel results, then the JSON result line.
 
 Needs one CUDA device, nvcc, torch and numpy; no network, no yaml, and
-nothing of jax or of the JAX package (gdb_nerf_tpu).
+nothing of jax or of the JAX package (gdb_nerf_tpu): the config literal and
+the requests below are made here, and tests/test_torch_port_imports.py
+holds them equal to the JAX package's load_cfg and loader and to the
+port's own.
 """
 
 from __future__ import annotations
@@ -30,6 +44,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import numpy as np
@@ -66,6 +81,10 @@ DTU_EVAL = {
 # leaves ~4x room.
 BF16_ATOL = 0.03
 F32_ATOL = F32_RTOL = 1e-4
+# Plane convs against their plain versions: float32 on both sides, the
+# kernel with fused multiply-adds and the sums in the same order.  bf16 is
+# held to 4 bf16 ulps at the output's largest magnitude (microbench_conv.bf16_tol).
+CONV_F32_ATOL, CONV_F32_RTOL = 1e-5, 1e-4
 REQUESTS = 5
 
 
@@ -128,20 +147,6 @@ def psnr(a, b) -> float:
     return 10.0 * np.log10(1.0 / max(mse, 1e-20))
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, after one warm-up."""
-    import torch
-
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def golden_state_dict():
     import torch
 
@@ -150,9 +155,12 @@ def golden_state_dict():
 
 
 def phase_device_and_build():
+    """The card, then both kernel libraries, built at once.  Returns the
+    bundle-head wrapper and the plane-conv wrappers."""
     import torch
 
     from gdb_nerf_tpu_torch.kernels.bundle_head import BundleHeadKernel
+    from gdb_nerf_tpu_torch.kernels.plane_conv import PlaneConvKernels
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this smoke needs a GPU")
@@ -163,14 +171,19 @@ def phase_device_and_build():
     print(smi)
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
-    kernel = BundleHeadKernel()
+    libraries = {"bundle_head": BundleHeadKernel(), "plane_conv": PlaneConvKernels()}
     t0 = time.time()
-    kernel.load()
-    print(f"[build] bundle_head built and loaded in {time.time() - t0:.1f} s")
-    for line in kernel.build_log.splitlines():
-        if any(k in line for k in ("entry function", "registers", "spill", "smem")):
-            print(f"[build] {line.strip()}")
-    return kernel
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        futures = [pool.submit(k.load) for k in libraries.values()]
+        for f in futures:
+            f.result()
+    print(f"[build] {', '.join(libraries)} built (nvcc in parallel) and loaded in "
+          f"{time.time() - t0:.1f} s")
+    for name, k in libraries.items():
+        for line in k.build_log.splitlines():
+            if any(s in line for s in ("entry function", "registers", "spill", "smem")):
+                print(f"[build] {name}: {line.strip()}")
+    return libraries["bundle_head"], libraries["plane_conv"]
 
 
 def phase_kernel_vs_plain(kernel, heads):
@@ -178,9 +191,11 @@ def phase_kernel_vs_plain(kernel, heads):
     head (``heads[dtype]``).  Returns the JSON fields."""
     import torch
 
-    from gdb_nerf_tpu_torch.kernels.bundle_head import bundle_head_reference
+    from gdb_nerf_tpu_torch.kernels.bundle_head import bundle_head_reference, work
+    from gdb_nerf_tpu_torch.kernels.measure import bound_ms, timed_ms
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    dev = torch.device("cuda")
     result = {}
     n_full = 256 * 320 * 3  # bundles of a 512x640 frame x 3 samples
     for n, V in ((n_full, 3), (n_full, 2), (n_full - 37, 3)):
@@ -207,15 +222,92 @@ def phase_kernel_vs_plain(kernel, heads):
                     f"max|dfeat|={err_f:.3e}")
             if n == n_full and V == 3:
                 with torch.inference_mode():
-                    ms = cuda_ms(lambda: kernel.launch(packed, vox, payload, frd), 20)
-                    plain_ms = cuda_ms(lambda: bundle_head_reference(head, vox, payload, frd), 20)
+                    ms = timed_ms(lambda: kernel.launch(packed, vox, payload, frd), dev, 20)
+                    plain_ms = timed_ms(lambda: bundle_head_reference(head, vox, payload, frd),
+                                        dev, 20)
                 line += f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
+                b_ms, b_by = bound_ms(*work(n, V, dt), dt)
+                line += f" bound {b_ms:.4f} ms ({b_by})"
                 if dt == torch.float32:
-                    result = {"max_abs_err": max(err_s, err_f), "ms": ms, "plain_ms": plain_ms}
+                    result = {"max_abs_err": max(err_s, err_f), "ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                              "dtype": "float32"}
             print(line)
             if not ok:
                 raise AssertionError(f"bundle_head kernel disagrees with its plain version: {line}")
     return result
+
+
+# Each plane-conv kernel against its plain version: the bench's full size
+# (timed), the microbench check's own shape and inputs (microbench_conv.check
+# and check_prims: C8, 32x256 or 64x256, seed 0), then a ragged shape (H and
+# W not multiples of the tiles, channels not a multiple of the groups of 8,
+# conv1 with c_in != c_out).
+CONV_CASES = {
+    "conv1": [dict(c=8, H=512, W=640), dict(c=8, H=32, W=256),
+              dict(c=5, c_out=12, H=509, W=637)],
+    "convchain": [dict(c=8, n=4, H=512, W=640), dict(c=8, n=3, H=32, W=256),
+                  dict(c=6, n=3, H=509, W=637)],
+    "fpnprim": [dict(c=8, H=512, W=640, scale=0.1), dict(c=8, H=64, W=256, scale=0.1),
+                dict(c=5, H=510, W=634, scale=0.1)],
+}
+
+
+REPLACES = {
+    "conv1": "tools/microbench_pallas_conv.py:217",
+    "convchain": "tools/microbench_pallas_conv.py:235",
+    "fpnprim": "tools/microbench_pallas_conv.py:153",
+}
+
+
+def phase_plane_conv(kernels):
+    """The conv microbench path with the launch counts set to 0 before it
+    and read after, then K2-K4 against their plain versions.  Returns the
+    JSON entries (numbers at the full size in bf16, the bench's type)."""
+    import torch
+
+    from gdb_nerf_tpu_torch.kernels.measure import timed_ms
+    from gdb_nerf_tpu_torch.kernels.plane_conv import KERNELS
+    from gdb_nerf_tpu_torch.runtime.renderer import set_float32_numerics
+    from gdb_nerf_tpu_torch.tools import microbench_conv as mb
+
+    set_float32_numerics(tf32=False)
+    kernels.launches = dict.fromkeys(KERNELS, 0)
+    for dtype in (torch.float32, torch.bfloat16):
+        mb.check(kernels, "cuda", dtype)
+        mb.check_prims(kernels, "cuda", dtype)
+    mb.bench(kernels, torch.device("cuda"))
+    mb.bench_prims(kernels, torch.device("cuda"))
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    print(f"[conv] launches on the microbench path: {launches}")
+    entries = []
+    for name, shapes in CONV_CASES.items():
+        plain = mb.REFERENCES[name]
+        entry = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            for i, shape in enumerate(shapes):
+                args = mb.inputs(name, dtype=dtype, device="cuda", **shape)
+                got = getattr(kernels, name)(*args)
+                torch.cuda.synchronize()
+                err, ok = mb.agree(got, plain(*args), CONV_F32_ATOL, CONV_F32_RTOL)
+                line = f"[conv] {name} {shape} {str(dtype)[6:]}: max|err| vs plain {err:.3e}"
+                if i == 0:
+                    dev = torch.device("cuda")
+                    r = mb.compare(kernels, name, args, dev)
+                    r["plain_ms"] = timed_ms(lambda: plain(*args), dev, mb.ITERS)
+                    line += (f" kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms cuDNN "
+                             f"{r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+                             f"({r['bound_by']})")
+                    if dtype == torch.bfloat16:
+                        entry = {"max_abs_err": err, **r, "dtype": "bfloat16"}
+                print(line)
+                if not ok:
+                    raise AssertionError(f"{name} kernel disagrees with its plain version: {line}")
+        entries.append({"name": name, "route": "cuda",
+                        "source": "gdb_nerf_tpu_torch/csrc/plane_conv.cu",
+                        "replaces": REPLACES[name], "launches": launches[name], **entry})
+    return entries
 
 
 def golden_batch(g, device):
@@ -311,21 +403,26 @@ def phase_serve(g, sd, rgb_f32_golden):
 def main() -> None:
     import torch
 
-    kernel = phase_device_and_build()
+    kernel, plane_kernels = phase_device_and_build()
     g, sd = golden_state_dict()
 
     # Each dtype's head as its network holds it (bf16 weights, sigma float32).
     heads = {getattr(torch, dt): build_renderer(dt, sd).network.nerf
              for dt in ("float32", "bfloat16")}
     k1 = phase_kernel_vs_plain(kernel, heads)
+    convs = phase_plane_conv(plane_kernels)
     rgb = phase_golden(g, sd)
     launches = phase_serve(g, sd, rgb)
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "bundle_head", "route": "cuda",
         "source": "gdb_nerf_tpu_torch/csrc/bundle_head.cu",
         "replaces": "gdb_nerf_tpu/ops/pallas/fused_nerf.py:89",
         "launches": launches, **k1,
-    }]}))
+    }, *convs]
+    for k in kernels:
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']}: no launch on its path")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

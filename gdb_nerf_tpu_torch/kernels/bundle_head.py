@@ -25,23 +25,13 @@ at first use, into ``build/kernels/``) and launches it, or raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
-_REPO = Path(__file__).resolve().parents[2]
-SOURCE = _REPO / "gdb_nerf_tpu_torch" / "csrc" / "bundle_head.cu"
-BUILD_DIR = _REPO / "build" / "kernels"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+from gdb_nerf_tpu_torch.kernels.build import CSRC, build_library
+
+SOURCE = CSRC / "bundle_head.cu"
 
 # Widths the kernel is compiled for: the dtu_eval head (feature 16 + rgb 3,
 # payload 3*2*2 + 19, voxel 8, hidden 64).  Must match csrc/bundle_head.cu.
@@ -75,6 +65,23 @@ def bundle_head_reference(head, vox: torch.Tensor, payload: torch.Tensor,
     return sigma, torch.cat([blended, head.feat_head(x)], dim=-1)
 
 
+def work(n: int, views: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(bytes, operations) of one head call on ``n`` samples and ``views``
+    views, from the compiled widths: inputs read once (the 11,930 float32
+    weights, vox, payload, frd), outputs written once (sigma float32, feat);
+    a multiply-add counts 2.  Per view: view_fc, the per-view column block of
+    global_fc, agg_w, the per-view block of weight.0, weight.2 and the payload
+    blend.  Once per sample: global_fc's var and mean blocks, fc, lr0, sigma,
+    the shared block of weight.0 and feat_head."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    F_, P, vox, hid, g, img = FEAT_RGB_DIM, PAYLOAD_DIM, VOXEL_DIM, HIDDEN_DIM, 32, 16
+    per_view = 2 * (4 * F_ + F_ * g + g + (F_ + 4) * hid + hid + P)
+    once = 2 * (2 * F_ * g + g * img + (vox + img) * hid + hid + (hid + vox + img) * hid
+                + hid * vox)
+    n_bytes = n * ((vox + views * (P + F_ + 4) + P + vox) * es + 4) + 11930 * 4
+    return n_bytes, n * (once + views * per_view)
+
+
 def pack_weights(head) -> torch.Tensor:
     """All head weights as one contiguous float32 vector, in the kernel's
     order; the concat-linears split into their column blocks."""
@@ -104,35 +111,6 @@ def pack_weights(head) -> torch.Tensor:
     return torch.cat([p.reshape(-1) for p in parts]).contiguous()
 
 
-def build_library(source: Path = SOURCE, build_dir: Path = BUILD_DIR) -> tuple[Path, str]:
-    """Compile ``source`` with nvcc into ``build_dir`` unless a library built
-    from the same source and flags is already there.
-
-    Returns (library path, compiler log; empty when nothing was built).
-    """
-    text = source.read_bytes()
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = build_dir / f"{source.stem}-{digest}.so"
-    if out.exists():
-        return out, ""
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA kernels build on a machine with the CUDA toolkit")
-    build_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
-    os.close(fd)
-    try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(source)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out, proc.stdout + proc.stderr
-
-
 class BundleHeadKernel:
     """Wrapper of the CUDA bundle-head kernel, with a count of its launches."""
 
@@ -144,7 +122,7 @@ class BundleHeadKernel:
     def load(self) -> ctypes.CDLL:
         """Build (if needed) and load the kernel library."""
         if self._lib is None:
-            path, self.build_log = build_library()
+            path, self.build_log = build_library(SOURCE)
             lib = ctypes.CDLL(str(path))
             lib.bundle_head_forward.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
                 ctypes.c_void_p

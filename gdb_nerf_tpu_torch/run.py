@@ -18,8 +18,8 @@ import os
 
 import torch
 
-from gdb_nerf_tpu.config import make_cfg, make_parser
-from gdb_nerf_tpu.datasets import make_data_loader
+from gdb_nerf_tpu_torch.config import make_cfg, make_parser
+from gdb_nerf_tpu_torch.datasets import make_data_loader
 from gdb_nerf_tpu_torch.runtime.registry import make_network
 from gdb_nerf_tpu_torch.runtime.renderer import Renderer, to_device
 

@@ -1,1 +1,1 @@
-"""Weight conversion from the JAX package."""
+"""Weight conversion from the JAX package, and file readers."""

@@ -21,6 +21,7 @@ import torch
 from gdb_nerf_tpu.models.nerf_head import BundleNeRF as JaxBundleNeRF
 from gdb_nerf_tpu.ops.pallas.fused_nerf import fused_bundle_nerf
 from gdb_nerf_tpu_torch.kernels import bundle_head
+from gdb_nerf_tpu_torch.kernels.measure import bound_ms
 from gdb_nerf_tpu_torch.models.nerf_head import BundleNeRF
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
@@ -151,3 +152,34 @@ def test_kernel_algorithm_on_packed_weights(rng, V):
     s_ref, f_ref = bundle_head.bundle_head_reference(head, vox, payload, frd)
     np.testing.assert_allclose(sigma.numpy(), s_ref.numpy(), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(feat.numpy(), f_ref.numpy(), rtol=1e-4, atol=1e-5)
+
+
+def test_work_counts_each_layer_of_the_head_once():
+    """``bundle_head.work`` against a count made from the head's own layers:
+    2 * in * out per sample for a layer that runs once, per view for one that
+    runs on each view (view_fc, global_fc's per-view block, agg_w, weight.0's
+    per-view block, weight.2) plus the payload blend.  At the dtu_eval shape
+    (N = 245,760, V = 3) float32 is bound by float32 operations, bf16 by bytes."""
+    head = BundleNeRF(HID, 16, VOX)
+    F_, n_shared = head.feat_rgb_dim, HID + VOX + 16
+
+    def macs(lin, cols=None):
+        out, inp = lin.weight.shape
+        return out * (inp if cols is None else cols)
+
+    per_view = (macs(head.view_fc[0]) + macs(head.global_fc[0], F_) + macs(head.agg_w_fc[0])
+                + macs(head.weight[0], F4) + macs(head.weight[2]) + P)
+    once = (macs(head.global_fc[0], 2 * F_) + macs(head.fc[0]) + macs(head.lr0[0])
+            + macs(head.sigma[0]) + macs(head.weight[0], n_shared) + macs(head.feat_head[0]))
+    assert head.global_fc[0].weight.shape[1] == 3 * F_
+    assert head.weight[0].weight.shape[1] == n_shared + F4
+    for V in (2, 3, 4):
+        assert bundle_head.work(100, V, torch.float32)[1] == 100 * 2 * (once + V * per_view)
+    n = 256 * 320 * 3
+    n_bytes, flops = bundle_head.work(n, 3, torch.float32)
+    assert flops / n == 32642
+    assert n_bytes == n * 840 + 11930 * 4
+    ms, by = bound_ms(n_bytes, flops, torch.float32)
+    assert by == "operations" and 0.119 < ms < 0.120
+    ms, by = bound_ms(*bundle_head.work(n, 3, torch.bfloat16), torch.bfloat16)
+    assert by == "bytes" and 0.030 < ms < 0.032
