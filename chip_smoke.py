@@ -3,10 +3,10 @@
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
-  1. device and build: the card's name and power limit, then the two CUDA
-     libraries (csrc/bundle_head.cu, csrc/plane_conv.cu) built from this
-     checkout's sources, both nvcc runs started together (build seconds,
-     ptxas info);
+  1. device and build: the card's name and power limit, then the three CUDA
+     libraries (csrc/bundle_head.cu, csrc/plane_conv.cu, csrc/gather.cu)
+     built from this checkout's sources, the nvcc runs started together
+     (build seconds, ptxas info);
   2. the bundle-head kernel against its plain PyTorch version on the card
      at the dtu_eval head shapes (N = 245,760 samples, V = 3; V = 2; a
      ragged N), in float32 and bf16, with both times and the bound;
@@ -19,6 +19,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      check's own shapes and inputs, and at a ragged shape, with the
      kernel's, the plain version's and cuDNN's times and the bound at the
      full size;
+  2c. the gather microbench paths (gdb_nerf_tpu_torch/tools/microbench_gather.py
+     and microbench_rowgather.py) driven in-process, with the gather kernels'
+     launch counts set to 0 before them and read after: each tool's check
+     (float32 and bf16, against PyTorch's gathers) and bench (bf16); then
+     take, take_along, row_loop and dma_ring each equal to its plain version
+     (torch.equal: a gather copies) at the tool's full size, timed with the
+     plain version, the fastest of PyTorch's single gather calls and the
+     bound, at ragged sizes (rows
+     not a power of two, N not a multiple of any tile or of the ring, N = 1,
+     rows narrower than 16 bytes where the kernel takes them) and in float32;
   3. the golden fixture (tests/golden/dtu_eval_golden.npz) rendered through
      the port in float32 with TF32 off: > 40 dB against the frozen render,
      the MVS depth check of tests/test_golden_protocol.py, and the kernel
@@ -155,11 +165,12 @@ def golden_state_dict():
 
 
 def phase_device_and_build():
-    """The card, then both kernel libraries, built at once.  Returns the
-    bundle-head wrapper and the plane-conv wrappers."""
+    """The card, then the three kernel libraries, built at once.  Returns
+    the bundle-head wrapper, the plane-conv wrappers and the gather wrappers."""
     import torch
 
     from gdb_nerf_tpu_torch.kernels.bundle_head import BundleHeadKernel
+    from gdb_nerf_tpu_torch.kernels.gather import GatherKernels
     from gdb_nerf_tpu_torch.kernels.plane_conv import PlaneConvKernels
 
     if not torch.cuda.is_available():
@@ -171,7 +182,8 @@ def phase_device_and_build():
     print(smi)
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
-    libraries = {"bundle_head": BundleHeadKernel(), "plane_conv": PlaneConvKernels()}
+    libraries = {"bundle_head": BundleHeadKernel(), "plane_conv": PlaneConvKernels(),
+                 "gather": GatherKernels()}
     t0 = time.time()
     with ThreadPoolExecutor(len(libraries)) as pool:
         futures = [pool.submit(k.load) for k in libraries.values()]
@@ -183,7 +195,7 @@ def phase_device_and_build():
         for line in k.build_log.splitlines():
             if any(s in line for s in ("entry function", "registers", "spill", "smem")):
                 print(f"[build] {name}: {line.strip()}")
-    return libraries["bundle_head"], libraries["plane_conv"]
+    return libraries["bundle_head"], libraries["plane_conv"], libraries["gather"]
 
 
 def phase_kernel_vs_plain(kernel, heads):
@@ -310,6 +322,78 @@ def phase_plane_conv(kernels):
     return entries
 
 
+GATHER_REPLACES = {
+    "take": "tools/microbench_pallas_gather.py:53",
+    "take_along": "tools/microbench_pallas_gather.py:82",
+    "row_loop": "tools/microbench_pallas_rowgather.py:69",
+    "dma_ring": "tools/microbench_pallas_rowgather.py:142",
+}
+
+
+def gather_cases(probe, name):
+    """(rows, C, N, dtype) of one gather kernel's comparisons: its tool's
+    full size in bf16 (timed) and in float32, then ragged sizes: rows not a
+    power of two and N not a multiple of any tile (256, 256-row loop tiles,
+    64-row ring tiles) or of the ring's 8 slots; rows narrower than 16 bytes
+    (13 bf16) where the kernel takes them, else 48-byte rows (24 bf16); N = 1."""
+    import torch
+
+    narrow = 24 if name == "dma_ring" else 13
+    bf16 = torch.bfloat16
+    return [(probe.rows, probe.C, probe.N, bf16), (probe.rows, probe.C, probe.N, torch.float32),
+            (1000, probe.C, 100_003, bf16), (777, narrow, 4097, bf16), (3, probe.C, 1, bf16)]
+
+
+def phase_gather(kernels):
+    """The two gather microbench paths with the launch counts set to 0
+    before them and read after, then K5-K6 against their plain versions.
+    Returns the JSON entries (numbers at the tool's full size, bf16)."""
+    import torch
+
+    from gdb_nerf_tpu_torch.kernels.gather import KERNELS, REFERENCES
+    from gdb_nerf_tpu_torch.kernels.measure import timed_ms
+    from gdb_nerf_tpu_torch.tools import microbench_gather, microbench_rowgather
+
+    tools = {"take": microbench_gather, "take_along": microbench_gather,
+             "row_loop": microbench_rowgather, "dma_ring": microbench_rowgather}
+    dev = torch.device("cuda")
+    kernels.launches = dict.fromkeys(KERNELS, 0)
+    for tool in (microbench_gather, microbench_rowgather):
+        for dtype in (torch.float32, torch.bfloat16):
+            tool.check(kernels, dev, dtype)
+        tool.bench(kernels, dev)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    print(f"[gather] launches on the microbench paths: {launches}")
+    entries = []
+    for name in KERNELS:
+        tool, plain = tools[name], REFERENCES[name]
+        entry, err = {}, 0.0
+        for i, (rows, C, N, dtype) in enumerate(gather_cases(tool.PROBE, name)):
+            table, idx = microbench_gather.inputs(rows, C, N, dtype, dev, tool.PROBE.idx_2d)
+            got = getattr(kernels, name)(table, idx)
+            torch.cuda.synchronize()
+            want = plain(table, idx)
+            same = torch.equal(got, want)
+            err = max(err, float((got.float() - want.float()).abs().max()))
+            line = (f"[gather] {name} table ({rows}, {C}) {str(dtype)[6:]} N={N}: "
+                    f"{'equal to' if same else 'DIFFERS from'} its plain version")
+            if i == 0:
+                r = microbench_gather.compare(kernels, name, table, idx, dev)
+                r["plain_ms"] = timed_ms(lambda: plain(table, idx), dev, microbench_gather.ITERS)
+                line += (f"; kernel {r['ms']:.4f} ms ({microbench_gather.rate(N, r['ms']):.1f} M "
+                         f"rows/s) plain {r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms "
+                         f"({r['library']}) bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+                entry = {**r, "dtype": "bfloat16"}
+            print(line)
+            if not same:
+                raise AssertionError(f"{name} kernel disagrees with its plain version: {line}")
+        entries.append({"name": name, "route": "cuda", "source": "gdb_nerf_tpu_torch/csrc/gather.cu",
+                        "replaces": GATHER_REPLACES[name], "launches": launches[name],
+                        "max_abs_err": err, **entry})
+    return entries
+
+
 def golden_batch(g, device):
     from gdb_nerf_tpu_torch.runtime.renderer import to_device
 
@@ -403,7 +487,7 @@ def phase_serve(g, sd, rgb_f32_golden):
 def main() -> None:
     import torch
 
-    kernel, plane_kernels = phase_device_and_build()
+    kernel, plane_kernels, gather_kernels = phase_device_and_build()
     g, sd = golden_state_dict()
 
     # Each dtype's head as its network holds it (bf16 weights, sigma float32).
@@ -411,6 +495,7 @@ def main() -> None:
              for dt in ("float32", "bfloat16")}
     k1 = phase_kernel_vs_plain(kernel, heads)
     convs = phase_plane_conv(plane_kernels)
+    gathers = phase_gather(gather_kernels)
     rgb = phase_golden(g, sd)
     launches = phase_serve(g, sd, rgb)
     kernels = [{
@@ -418,7 +503,7 @@ def main() -> None:
         "source": "gdb_nerf_tpu_torch/csrc/bundle_head.cu",
         "replaces": "gdb_nerf_tpu/ops/pallas/fused_nerf.py:89",
         "launches": launches, **k1,
-    }, *convs]
+    }, *convs, *gathers]
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launch on its path")

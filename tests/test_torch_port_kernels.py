@@ -1,5 +1,6 @@
 """The CUDA kernels on the card: agreement with their plain versions and the
-wrappers' checks (the bundle head K1; the plane convs K2-K4).
+wrappers' checks (the bundle head K1; the plane convs K2-K4; the gathers
+K5-K6).
 
 These tests need a CUDA device (the kernel has no CPU mode) and skip
 without one.  The GPU machine has no jax, and tests/conftest.py imports it,
@@ -12,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from gdb_nerf_tpu_torch.kernels import gather
 from gdb_nerf_tpu_torch.kernels.bundle_head import BundleHeadKernel, bundle_head_reference
+from gdb_nerf_tpu_torch.kernels.gather import GatherKernels
 from gdb_nerf_tpu_torch.kernels.plane_conv import PlaneConvKernels
 from gdb_nerf_tpu_torch.models.nerf_head import BundleNeRF
-from gdb_nerf_tpu_torch.tools import microbench_conv
+from gdb_nerf_tpu_torch.tools import microbench_conv, microbench_gather
 
 pytestmark = pytest.mark.cuda
 
@@ -135,3 +138,69 @@ def test_plane_conv_wrappers_raise_on_what_the_kernels_do_not_take(plane_kernels
     with pytest.raises(ValueError):
         plane_kernels.convchain(x, ws[:, :, :3].contiguous(), bs)
     assert plane_kernels.launches == {"conv1": 0, "convchain": 0, "fpnprim": 0}
+
+
+@pytest.fixture
+def gather_kernels():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the gather kernels have no CPU mode")
+    return GatherKernels()
+
+
+# Ragged gathers: rows not a power of two, N not a multiple of any tile
+# (256 threads, 256-row loop tiles, 64-row ring tiles) or of the ring's 8
+# slots, N = 1, rows = 1; C giving 16-byte rows and narrower ones (13 bf16 =
+# 26 B; 6 float32 = 24 B) for the kernels that take them (dma_ring needs rows
+# of a multiple of 16 bytes: 24 bf16 = 48 B, 12 float32 = 48 B).
+GATHER_CASES = [(1000, 16, 100_003), (777, 128, 4097), (3, 16, 1), (1, 24, 77)]
+GATHER_NARROW = [(1000, 13, 5001), (91, 6, 300)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", gather.KERNELS)
+@torch.no_grad()
+def test_gather_kernel_matches_plain_version(gather_kernels, name, dtype):
+    cases = GATHER_CASES + (GATHER_NARROW if name != "dma_ring" else [])
+    for k, (rows, C, N) in enumerate(cases):
+        table, idx = microbench_gather.inputs(rows, C, N, dtype, "cuda", idx_2d=k % 2 == 0)
+        if k == 0:  # out of range on both sides: clamped
+            idx.view(-1)[:5] = torch.tensor([-7, rows, rows + 1000, -1, 2**31 - 1],
+                                            dtype=torch.int32)
+        got = getattr(gather_kernels, name)(table, idx)
+        torch.cuda.synchronize()
+        assert gather_kernels.launches[name] == k + 1
+        assert torch.equal(got, gather.REFERENCES[name](table, idx)), (rows, C, N)
+
+
+@torch.no_grad()
+def test_gather_wrappers_raise_on_what_the_kernels_do_not_take(gather_kernels):
+    table, idx = microbench_gather.inputs(64, 16, 100, torch.bfloat16, "cuda")
+    bad = {
+        "int64 indices": (table, idx.long()),
+        "table on the CPU": (table.cpu(), idx),
+        "indices on the CPU": (table, idx.cpu()),
+        "non-contiguous table": (table.t().contiguous().t(), idx),
+        "3-D index": (table, idx.reshape(10, 10, 1)),
+        "float16 table": (table.half(), idx),
+    }
+    for name in gather.KERNELS:
+        for what, args in bad.items():
+            with pytest.raises(ValueError):
+                getattr(gather_kernels, name)(*args)
+            assert gather_kernels.launches[name] == 0, (name, what)
+    # A bulk copy needs rows of a multiple of 16 bytes: 6 bf16 are 12 B.
+    narrow, idx = microbench_gather.inputs(64, 6, 100, torch.bfloat16, "cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        gather_kernels.dma_ring(narrow, idx)
+    assert gather_kernels.launches == dict.fromkeys(gather.KERNELS, 0)
+    # ... and a table 2 bytes past a 16-byte boundary.
+    shifted = torch.empty(64 * 16 + 1, dtype=torch.bfloat16, device="cuda")[1:].view(64, 16)
+    shifted.copy_(table)
+    with pytest.raises(ValueError, match="16-byte"):
+        gather_kernels.dma_ring(shifted, idx)
+    assert gather_kernels.launches == dict.fromkeys(gather.KERNELS, 0)
+    # The other kernels take both, in narrower pieces.
+    for name in ("take", "take_along", "row_loop"):
+        for t in (narrow, shifted):
+            assert torch.equal(getattr(gather_kernels, name)(t, idx), gather.take_reference(t, idx))
+        assert gather_kernels.launches[name] == 2
