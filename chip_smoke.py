@@ -3,10 +3,10 @@
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
-  1. device and build: the card's name and power limit, then the three CUDA
-     libraries (csrc/bundle_head.cu, csrc/plane_conv.cu, csrc/gather.cu)
-     built from this checkout's sources, the nvcc runs started together
-     (build seconds, ptxas info);
+  1. device and build: the card's name and power limit, then the four CUDA
+     libraries (csrc/bundle_head.cu, csrc/plane_conv.cu, csrc/gather.cu,
+     csrc/plane_ops.cu) built from this checkout's sources, the nvcc runs
+     started together (build seconds, ptxas info);
   2. the bundle-head kernel against its plain PyTorch version on the card
      at the dtu_eval head shapes (N = 245,760 samples, V = 3; V = 2; a
      ragged N), in float32 and bf16, with both times and the bound;
@@ -29,6 +29,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      bound, at ragged sizes (rows
      not a power of two, N not a multiple of any tile or of the ring, N = 1,
      rows narrower than 16 bytes where the kernel takes them) and in float32;
+  2d. the probe tool's path (gdb_nerf_tpu_torch/tools/probe_ops.py) driven
+     in-process, with the plane-primitive kernels' launch counts set to 0
+     before it and read after: its check of the nine probes at their size
+     (8, 64, 256); then each probe's kernel against its plain version at
+     that size, at the FPN's plane size (C8, 512x640) and at a ragged size
+     (C5, H and W odd and not multiples of any tile, 508x638 for the row
+     mask), equal bit for bit (the conv: within the conv tolerance), with
+     PyTorch's own calls held to the plain version too (a 0/1 product in
+     TF32 would differ), and the kernel's, the plain version's and the
+     library calls' times and the bound at 512x640;
   3. the golden fixture (tests/golden/dtu_eval_golden.npz) rendered through
      the port in float32 with TF32 off: > 40 dB against the frozen render,
      the MVS depth check of tests/test_golden_protocol.py, and the kernel
@@ -96,6 +106,7 @@ F32_ATOL = F32_RTOL = 1e-4
 # held to 4 bf16 ulps at the output's largest magnitude (microbench_conv.bf16_tol).
 CONV_F32_ATOL, CONV_F32_RTOL = 1e-5, 1e-4
 REQUESTS = 5
+ITERS = 20  # timed calls per kernel, plain version or library call
 
 
 def namespace(d: dict) -> SimpleNamespace:
@@ -165,13 +176,15 @@ def golden_state_dict():
 
 
 def phase_device_and_build():
-    """The card, then the three kernel libraries, built at once.  Returns
-    the bundle-head wrapper, the plane-conv wrappers and the gather wrappers."""
+    """The card, then the four kernel libraries, built at once.  Returns
+    the bundle-head wrapper, the plane-conv, gather and plane-primitive
+    wrappers."""
     import torch
 
     from gdb_nerf_tpu_torch.kernels.bundle_head import BundleHeadKernel
     from gdb_nerf_tpu_torch.kernels.gather import GatherKernels
     from gdb_nerf_tpu_torch.kernels.plane_conv import PlaneConvKernels
+    from gdb_nerf_tpu_torch.kernels.plane_ops import PlaneOpsKernels
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this smoke needs a GPU")
@@ -183,7 +196,7 @@ def phase_device_and_build():
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
     libraries = {"bundle_head": BundleHeadKernel(), "plane_conv": PlaneConvKernels(),
-                 "gather": GatherKernels()}
+                 "gather": GatherKernels(), "plane_ops": PlaneOpsKernels()}
     t0 = time.time()
     with ThreadPoolExecutor(len(libraries)) as pool:
         futures = [pool.submit(k.load) for k in libraries.values()]
@@ -195,7 +208,7 @@ def phase_device_and_build():
         for line in k.build_log.splitlines():
             if any(s in line for s in ("entry function", "registers", "spill", "smem")):
                 print(f"[build] {name}: {line.strip()}")
-    return libraries["bundle_head"], libraries["plane_conv"], libraries["gather"]
+    return tuple(libraries.values())
 
 
 def phase_kernel_vs_plain(kernel, heads):
@@ -394,6 +407,118 @@ def phase_gather(kernels):
     return entries
 
 
+# Line of each probe's function in the TPU tool.
+PROBE_REPLACES = {
+    "sublane_stride2": 45, "lane_stride2": 64, "lane_downsample_matmul": 83,
+    "sublane_downsample_matmul": 113, "repeat_upsample": 143, "upsample_matmul": 162,
+    "grouped_conv3": 195, "dyn_row_mask": 235, "pad_value": 273,
+}
+PROBE_FULL = (8, 512, 640)  # the FPN's first-layer planes, where K2-K4 are timed
+
+
+def probe_sizes(name):
+    """(C, H, W) of one probe's comparisons: the probe's own size, the FPN's
+    plane size (timed), then a ragged size (C5; H and W odd and not
+    multiples of any tile; H a multiple of 4 and W even for the row mask)."""
+    from gdb_nerf_tpu_torch.tools import probe_ops
+
+    ragged = (5, 508, 638) if name == "dyn_row_mask" else (5, 509, 637)
+    return [(probe_ops.C, probe_ops.H, probe_ops.W), PROBE_FULL, ragged]
+
+
+def probe_library_call(name: str, args):
+    """Probe ``name``'s function as PyTorch's own calls on ``args`` (made
+    once, outside the call): the yardstick of the K7 kernels' times, used
+    nowhere in the port.  The products are ``torch.matmul`` in float32,
+    which must equal the plain versions on a 0/1 matrix unless TF32 is on."""
+    import torch
+    import torch.nn.functional as F
+
+    from gdb_nerf_tpu_torch.kernels.plane_ops import ROW_MASK_OFFSET
+    from gdb_nerf_tpu_torch.tools.probe_ops import conv_weights_oihw
+
+    x = args[0]
+    if name == "sublane_stride2":
+        return lambda: x[:, ::2].contiguous()
+    if name == "lane_stride2":
+        return lambda: x[..., ::2].contiguous()
+    if name == "lane_downsample_matmul":
+        return lambda: torch.matmul(x, args[1])
+    if name == "sublane_downsample_matmul":
+        return lambda: torch.matmul(args[1], x)
+    if name == "repeat_upsample":
+        return lambda: F.interpolate(x[None], scale_factor=2, mode="nearest")[0]
+    if name == "upsample_matmul":
+        return lambda: torch.matmul(args[1], torch.matmul(x, args[2]))
+    if name == "grouped_conv3":
+        w = conv_weights_oihw(args[1])
+        return lambda: F.conv2d(x[None], w)[0]
+    if name == "dyn_row_mask":
+        c, h, w = x.shape
+        rows = torch.arange(h, device=x.device)[None, :, None]
+        blocks = x.view(c, 2, h // 2, w)[:, :, :h // 4, :w // 2]
+        return lambda: (torch.where(rows < h - ROW_MASK_OFFSET, x, 0.0),
+                        blocks.reshape(c, h // 2, w // 2))
+    if name == "pad_value":
+        return lambda: F.pad(x, (1, 1, 1, 1))
+    raise ValueError(f"unknown probe {name!r}")
+
+
+def phase_plane_ops(kernels):
+    """The probe tool's check with the launch counts set to 0 before it and
+    read after, then K7a-K7i against their plain versions.  Returns the JSON
+    entries (numbers at the FPN's plane size, float32)."""
+    import torch
+
+    from gdb_nerf_tpu_torch.kernels.measure import bound_ms, timed_ms
+    from gdb_nerf_tpu_torch.kernels.plane_ops import ENTRY_POINTS, KERNELS, REFERENCES, work
+    from gdb_nerf_tpu_torch.runtime.renderer import set_float32_numerics
+    from gdb_nerf_tpu_torch.tools import probe_ops
+
+    dev = torch.device("cuda")
+    set_float32_numerics(tf32=False)
+    kernels.launches = dict.fromkeys(KERNELS, 0)
+    probe_ops.check(kernels, dev)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    print(f"[probe] launches on the probe tool's path: {launches}")
+    entries = []
+    for name in KERNELS:
+        kernel, plain = getattr(kernels, name), REFERENCES[name]
+        entry, err = {}, 0.0
+        for size in probe_sizes(name):
+            args = probe_ops.inputs(name, *size, dev)
+            got = kernel(*args)
+            torch.cuda.synchronize()
+            want = plain(*args)
+            e, ok = probe_ops.agree(name, got, want)
+            err = max(err, e)
+            line = f"[probe] {name} {size}: max|err| vs plain {e:.3e}"
+            if size == PROBE_FULL:
+                library = probe_library_call(name, args)
+                lib_err, lib_ok = probe_ops.agree(name, library(), want)
+                ms = timed_ms(lambda: kernel(*args), dev, ITERS)
+                plain_ms = timed_ms(lambda: plain(*args), dev, ITERS)
+                library_ms = timed_ms(library, dev, ITERS)
+                b_ms, b_by = bound_ms(*work(name, args), torch.float32)
+                line += (f", library vs plain {lib_err:.3e}; kernel {ms:.4f} ms plain "
+                         f"{plain_ms:.4f} ms library {library_ms:.4f} ms bound {b_ms:.4f} ms "
+                         f"({b_by})")
+                entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": library_ms, "dtype": "float32"}
+                if not lib_ok:
+                    raise AssertionError(f"{name}: PyTorch's calls disagree with the plain "
+                                         f"version (TF32 on?): {line}")
+            print(line)
+            if not ok:
+                raise AssertionError(f"{name} kernel disagrees with its plain version: {line}")
+        entries.append({"name": name, "route": "cuda", "source": "gdb_nerf_tpu_torch/csrc/plane_ops.cu",
+                        "kernel": ENTRY_POINTS[name],
+                        "replaces": f"tools/probe_mosaic_ops.py:{PROBE_REPLACES[name]}",
+                        "launches": launches[name], "max_abs_err": err, **entry})
+    return entries
+
+
 def golden_batch(g, device):
     from gdb_nerf_tpu_torch.runtime.renderer import to_device
 
@@ -487,7 +612,7 @@ def phase_serve(g, sd, rgb_f32_golden):
 def main() -> None:
     import torch
 
-    kernel, plane_kernels, gather_kernels = phase_device_and_build()
+    kernel, plane_kernels, gather_kernels, probe_kernels = phase_device_and_build()
     g, sd = golden_state_dict()
 
     # Each dtype's head as its network holds it (bf16 weights, sigma float32).
@@ -496,6 +621,7 @@ def main() -> None:
     k1 = phase_kernel_vs_plain(kernel, heads)
     convs = phase_plane_conv(plane_kernels)
     gathers = phase_gather(gather_kernels)
+    probes = phase_plane_ops(probe_kernels)
     rgb = phase_golden(g, sd)
     launches = phase_serve(g, sd, rgb)
     kernels = [{
@@ -503,7 +629,7 @@ def main() -> None:
         "source": "gdb_nerf_tpu_torch/csrc/bundle_head.cu",
         "replaces": "gdb_nerf_tpu/ops/pallas/fused_nerf.py:89",
         "launches": launches, **k1,
-    }, *convs, *gathers]
+    }, *convs, *gathers, *probes]
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launch on its path")

@@ -1,6 +1,6 @@
 """The CUDA kernels on the card: agreement with their plain versions and the
 wrappers' checks (the bundle head K1; the plane convs K2-K4; the gathers
-K5-K6).
+K5-K6; the plane primitives K7).
 
 These tests need a CUDA device (the kernel has no CPU mode) and skip
 without one.  The GPU machine has no jax, and tests/conftest.py imports it,
@@ -13,12 +13,14 @@ import numpy as np
 import pytest
 import torch
 
-from gdb_nerf_tpu_torch.kernels import gather
+from gdb_nerf_tpu_torch.kernels import gather, plane_ops
 from gdb_nerf_tpu_torch.kernels.bundle_head import BundleHeadKernel, bundle_head_reference
 from gdb_nerf_tpu_torch.kernels.gather import GatherKernels
 from gdb_nerf_tpu_torch.kernels.plane_conv import PlaneConvKernels
+from gdb_nerf_tpu_torch.kernels.plane_ops import PlaneOpsKernels
 from gdb_nerf_tpu_torch.models.nerf_head import BundleNeRF
-from gdb_nerf_tpu_torch.tools import microbench_conv, microbench_gather
+from gdb_nerf_tpu_torch.runtime.renderer import set_float32_numerics
+from gdb_nerf_tpu_torch.tools import microbench_conv, microbench_gather, probe_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -204,3 +206,78 @@ def test_gather_wrappers_raise_on_what_the_kernels_do_not_take(gather_kernels):
         for t in (narrow, shifted):
             assert torch.equal(getattr(gather_kernels, name)(t, idx), gather.take_reference(t, idx))
         assert gather_kernels.launches[name] == 2
+
+
+@pytest.fixture
+def probe_kernels():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the plane-primitive kernels have no CPU mode")
+    set_float32_numerics(tf32=False)
+    return PlaneOpsKernels()
+
+
+# The probe's size, then ragged planes: C5, H and W odd and not multiples of
+# any tile (64x64 products, 8x32 conv tiles), and one plane smaller than a
+# tile; the row mask takes H % 4 == 0 and W even.
+PROBE_CASES = [(8, 64, 256), (5, 37, 45), (3, 5, 7)]
+ROW_MASK_CASES = [(8, 64, 256), (5, 36, 46), (3, 4, 2)]
+
+
+@pytest.mark.parametrize("name", plane_ops.KERNELS)
+@torch.no_grad()
+def test_plane_op_kernel_matches_plain_version(probe_kernels, name):
+    cases = ROW_MASK_CASES if name == "dyn_row_mask" else PROBE_CASES
+    for k, size in enumerate(cases):
+        args = probe_ops.inputs(name, *size, "cuda", seed=k)
+        got = getattr(probe_kernels, name)(*args)
+        torch.cuda.synchronize()
+        assert probe_kernels.launches[name] == k + 1
+        # Copies and 0/1 products: equal; the conv within 1e-5 / 1e-4.
+        err, ok = probe_ops.agree(name, got, plane_ops.REFERENCES[name](*args))
+        assert ok, (size, err)
+        err, ok = probe_ops.agree(name, got, probe_ops.expected(name, args))
+        assert ok, (size, err)
+
+
+@pytest.mark.parametrize("size", [(8, 64, 256), (5, 37, 45)])
+@torch.no_grad()
+def test_select_matmul_with_a_random_matrix(probe_kernels, size):
+    """A general product, the matrix on the right and on the left: entries
+    ~ N(0, 1/K) keep the outputs near 1; float32 in another order than the
+    plain version (FMAs): atol 1e-5, rtol 1e-4."""
+    C, H, W = size
+    g = torch.Generator().manual_seed(H)
+    x = torch.randn(C, H, W, generator=g).cuda()
+    right = (torch.randn(W, 29, generator=g) / W**0.5).cuda()
+    left = (torch.randn(23, H, generator=g) / H**0.5).cuda()
+    for name, args in (("lane_downsample_matmul", (x, right)),
+                       ("sublane_downsample_matmul", (x, left)),
+                       ("upsample_matmul", (x, left, right))):
+        got = getattr(probe_kernels, name)(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, plane_ops.REFERENCES[name](*args), atol=1e-5, rtol=1e-4)
+    assert probe_kernels.launches["upsample_matmul"] == 1
+
+
+@torch.no_grad()
+def test_plane_op_wrappers_raise_on_what_the_kernels_do_not_take(probe_kernels):
+    x = torch.randn(3, 8, 10, device="cuda")
+    s = torch.randn(10, 5, device="cuda")
+    bad = {
+        "float64": ("pad_value", (x.double(),)),
+        "bf16": ("repeat_upsample", (x.bfloat16(),)),
+        "non-contiguous": ("lane_stride2", (x.transpose(1, 2),)),
+        "rank 2": ("sublane_stride2", (x[0],)),
+        "rank 4": ("pad_value", (x[None],)),
+        "matrix on the CPU": ("lane_downsample_matmul", (x, s.cpu())),
+        "matrix rows": ("lane_downsample_matmul", (x, s[:9].contiguous())),
+        "non-contiguous matrix": ("lane_downsample_matmul", (x, s.t().contiguous().t())),
+        "matrix bf16": ("sublane_downsample_matmul", (x, torch.randn(4, 8, device="cuda").bfloat16())),
+        "conv weights": ("grouped_conv3", (x, torch.randn(3, 9, 2, 1, device="cuda"))),
+        "row mask H": ("dyn_row_mask", (torch.randn(3, 10, 10, device="cuda"),)),
+        "row mask W": ("dyn_row_mask", (torch.randn(3, 8, 9, device="cuda"),)),
+    }
+    for what, (name, args) in bad.items():
+        with pytest.raises(ValueError):
+            getattr(probe_kernels, name)(*args)
+        assert probe_kernels.launches == dict.fromkeys(plane_ops.KERNELS, 0), what
