@@ -38,7 +38,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      mask), equal bit for bit (the conv: within the conv tolerance), with
      PyTorch's own calls held to the plain version too (a 0/1 product in
      TF32 would differ), and the kernel's, the plain version's and the
-     library calls' times and the bound at 512x640;
+     library calls' times, the bound, its share and the achieved TFLOP/s
+     or GB/s at 512x640, with the tile row of each product launch; then the
+     card tests' sizes: a random-matrix product at each tile row on either
+     side (probe_ops.TILE_CASES, within 1e-5 / 1e-4) and both strided
+     slices at each path's width (probe_ops.SLICE_WIDTHS, bit for bit);
   3. the golden fixture (tests/golden/dtu_eval_golden.npz) rendered through
      the port in float32 with TF32 off: > 40 dB against the frozen render,
      the MVS depth check of tests/test_golden_protocol.py, and the kernel
@@ -426,56 +430,28 @@ def probe_sizes(name):
     return [(probe_ops.C, probe_ops.H, probe_ops.W), PROBE_FULL, ragged]
 
 
-def probe_library_call(name: str, args):
-    """Probe ``name``'s function as PyTorch's own calls on ``args`` (made
-    once, outside the call): the yardstick of the K7 kernels' times, used
-    nowhere in the port.  The products are ``torch.matmul`` in float32,
-    which must equal the plain versions on a 0/1 matrix unless TF32 is on."""
-    import torch
-    import torch.nn.functional as F
-
-    from gdb_nerf_tpu_torch.kernels.plane_ops import ROW_MASK_OFFSET
-    from gdb_nerf_tpu_torch.tools.probe_ops import conv_weights_oihw
-
-    x = args[0]
-    if name == "sublane_stride2":
-        return lambda: x[:, ::2].contiguous()
-    if name == "lane_stride2":
-        return lambda: x[..., ::2].contiguous()
-    if name == "lane_downsample_matmul":
-        return lambda: torch.matmul(x, args[1])
-    if name == "sublane_downsample_matmul":
-        return lambda: torch.matmul(args[1], x)
-    if name == "repeat_upsample":
-        return lambda: F.interpolate(x[None], scale_factor=2, mode="nearest")[0]
-    if name == "upsample_matmul":
-        return lambda: torch.matmul(args[1], torch.matmul(x, args[2]))
-    if name == "grouped_conv3":
-        w = conv_weights_oihw(args[1])
-        return lambda: F.conv2d(x[None], w)[0]
-    if name == "dyn_row_mask":
-        c, h, w = x.shape
-        rows = torch.arange(h, device=x.device)[None, :, None]
-        blocks = x.view(c, 2, h // 2, w)[:, :, :h // 4, :w // 2]
-        return lambda: (torch.where(rows < h - ROW_MASK_OFFSET, x, 0.0),
-                        blocks.reshape(c, h // 2, w // 2))
-    if name == "pad_value":
-        return lambda: F.pad(x, (1, 1, 1, 1))
-    raise ValueError(f"unknown probe {name!r}")
+def rate(n_bytes: float, flops: float, by: str, ms: float) -> str:
+    """What a kernel achieved in ``ms``: TFLOP/s if operations bound it,
+    else GB/s."""
+    return f"{flops / ms / 1e9:.1f} TFLOP/s" if by == "operations" else f"{n_bytes / ms / 1e6:.0f} GB/s"
 
 
 def phase_plane_ops(kernels):
     """The probe tool's check with the launch counts set to 0 before it and
-    read after, then K7a-K7i against their plain versions.  Returns the JSON
-    entries (numbers at the FPN's plane size, float32)."""
+    read after, then K7a-K7i against their plain versions, then the card
+    tests' tile-row and slice-path sizes.  Returns the JSON entries (numbers
+    at the FPN's plane size, float32; ``max_abs_err`` over the probes'
+    inputs, a product's ``random_max_abs_err`` over its random matrices)."""
     import torch
 
     from gdb_nerf_tpu_torch.kernels.measure import bound_ms, timed_ms
-    from gdb_nerf_tpu_torch.kernels.plane_ops import ENTRY_POINTS, KERNELS, REFERENCES, work
+    from gdb_nerf_tpu_torch.kernels.plane_ops import (ENTRY_POINTS, KERNELS, PRODUCTS, REFERENCES,
+                                                      product_tiles, tile_name, work)
     from gdb_nerf_tpu_torch.runtime.renderer import set_float32_numerics
     from gdb_nerf_tpu_torch.tools import probe_ops
 
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     set_float32_numerics(tf32=False)
     kernels.launches = dict.fromkeys(KERNELS, 0)
     probe_ops.check(kernels, dev)
@@ -495,17 +471,22 @@ def phase_plane_ops(kernels):
             err = max(err, e)
             line = f"[probe] {name} {size}: max|err| vs plain {e:.3e}"
             if size == PROBE_FULL:
-                library = probe_library_call(name, args)
+                library = probe_ops.library_call(name, args)
                 lib_err, lib_ok = probe_ops.agree(name, library(), want)
                 ms = timed_ms(lambda: kernel(*args), dev, ITERS)
                 plain_ms = timed_ms(lambda: plain(*args), dev, ITERS)
                 library_ms = timed_ms(library, dev, ITERS)
-                b_ms, b_by = bound_ms(*work(name, args), torch.float32)
+                n_bytes, flops = work(name, args)
+                b_ms, b_by = bound_ms(n_bytes, flops, torch.float32)
                 line += (f", library vs plain {lib_err:.3e}; kernel {ms:.4f} ms plain "
                          f"{plain_ms:.4f} ms library {library_ms:.4f} ms bound {b_ms:.4f} ms "
-                         f"({b_by})")
+                         f"({b_by}), {100 * b_ms / ms:.0f} % of it, "
+                         f"{rate(n_bytes, flops, b_by, ms)}")
                 entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                          "library_ms": library_ms, "dtype": "float32"}
+                if name in PRODUCTS:
+                    entry["tile"] = [tile_name(i) for i in product_tiles(name, args, sms)]
+                    line += f"; tile {' then '.join(entry['tile'])}"
                 if not lib_ok:
                     raise AssertionError(f"{name}: PyTorch's calls disagree with the plain "
                                          f"version (TF32 on?): {line}")
@@ -516,6 +497,27 @@ def phase_plane_ops(kernels):
                         "kernel": ENTRY_POINTS[name],
                         "replaces": f"tools/probe_mosaic_ops.py:{PROBE_REPLACES[name]}",
                         "launches": launches[name], "max_abs_err": err, **entry})
+    by_name = {e["name"]: e for e in entries}
+    for case in probe_ops.TILE_CASES:
+        name = case[0]
+        args = probe_ops.random_product_inputs(*case, dev, seed=case[3])
+        got = getattr(kernels, name)(*args)
+        torch.cuda.synchronize()
+        err, ok = probe_ops.close(got, REFERENCES[name](*args))
+        entry = by_name[name]
+        entry["random_max_abs_err"] = max(entry.get("random_max_abs_err", 0.0), err)
+        line = (f"[probe] {name} random matrix {case[1:]}: tile "
+                f"{tile_name(product_tiles(name, args, sms)[0])}, max|err| vs plain {err:.3e}")
+        print(line)
+        if not ok:
+            raise AssertionError(f"{name} kernel disagrees with its plain version: {line}")
+    for W in probe_ops.SLICE_WIDTHS:
+        x = torch.randn(probe_ops.SLICE_C, probe_ops.SLICE_H, W, device=dev)
+        for name in ("sublane_stride2", "lane_stride2"):
+            same = torch.equal(getattr(kernels, name)(x), REFERENCES[name](x))
+            print(f"[probe] {name} W={W}: {'equal to' if same else 'DIFFERS from'} its plain version")
+            if not same:
+                raise AssertionError(f"{name} kernel disagrees with its plain version at W={W}")
     return entries
 
 

@@ -29,13 +29,15 @@ def build_library(source: Path, build_dir: Path = BUILD_DIR) -> tuple[Path, str]
     """Compile ``source`` with nvcc into ``build_dir`` unless a library built
     from the same source and flags is already there.
 
-    Returns (library path, compiler log; empty when nothing was built).
+    Returns (library path, compiler log: the one kept beside the library
+    when nothing was built).
     """
     text = source.read_bytes()
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = build_dir / f"{source.stem}-{digest}.so"
+    log = out.with_suffix(".log")
     if out.exists():
-        return out, ""
+        return out, log.read_text() if log.exists() else ""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
         raise RuntimeError("nvcc not found: the CUDA kernels build on a machine with the CUDA toolkit")
@@ -47,6 +49,7 @@ def build_library(source: Path, build_dir: Path = BUILD_DIR) -> tuple[Path, str]
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}{proc.stderr}")
+        log.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):

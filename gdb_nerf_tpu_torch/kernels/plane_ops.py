@@ -36,11 +36,17 @@ probe (``upsample_matmul``'s two products count as one): on CPU tensors a
 wrapper runs the plain version; on CUDA tensors it builds the library
 (``csrc/plane_ops.cu``, ``nvcc`` at first use, into ``build/kernels/``) and
 launches the kernel, or raises.  float32 only, as every probe is.
+
+The product kernel takes one of two block tiles (``MATMUL_TILES``, the
+table of ``csrc/plane_ops.cu``); ``select_tile`` picks the row per launch
+from how evenly its blocks fill the card's SMs, here in Python where the
+CPU tests reach it, and the wrapper passes its index to the entry point.
 """
 
 from __future__ import annotations
 
 import ctypes
+from fractions import Fraction
 
 import torch
 import torch.nn.functional as F
@@ -61,6 +67,14 @@ ENTRY_POINTS = {
     "pad_value": "plane_pad",
 }
 ROW_MASK_OFFSET = 5  # dyn_row_mask zeroes rows >= H - 5, as the probe does
+PRODUCTS = ("lane_downsample_matmul", "sublane_downsample_matmul", "upsample_matmul")
+# The product kernel's block tiles (rows M x columns N of out), by the index
+# its entry point takes, largest first: csrc/plane_ops.cu's kTile<i>M,
+# kTile<i>N.
+MATMUL_TILES = ((64, 128), (32, 128))
+# The smaller tile runs fewer FMAs per byte it stages: it is taken only where
+# it fills the SMs more evenly by more than this share.
+FILL_MARGIN = 0.2
 
 
 def matmul_right(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -220,6 +234,57 @@ def work(name: str, args) -> tuple[int, int]:
     return 4 * (n_in + n_out), flops
 
 
+def tile_counts(batch: int, M: int, N: int, a_batched: bool, b_batched: bool) -> list[int]:
+    """Blocks of each ``MATMUL_TILES`` row for ``out[b] = a[b] @ b[b]``
+    (M, N) over ``batch``: a right product (a batched, b shared) folds the
+    batch into M, as the entry point does; otherwise every b has its tiles."""
+    if a_batched and not b_batched:
+        batch, M = 1, batch * M
+    return [batch * -(-M // tm) * -(-N // tn) for tm, tn in MATMUL_TILES]
+
+
+def tile_fill(tiles: int, sms: int) -> Fraction:
+    """How evenly ``tiles`` blocks fill ``sms`` SMs: tiles / (waves * sms),
+    waves = ceil(tiles / sms); the busiest SM does 1 / fill times the
+    average's work."""
+    return Fraction(tiles, -(-tiles // sms) * sms)
+
+
+def select_tile(batch: int, M: int, N: int, a_batched: bool, b_batched: bool,
+                sms: int) -> int:
+    """The first (largest) ``MATMUL_TILES`` row whose blocks fill ``sms``
+    SMs within ``FILL_MARGIN`` of the most even row's fill."""
+    fill = [tile_fill(n, sms) for n in tile_counts(batch, M, N, a_batched, b_batched)]
+    best = max(fill)
+    return next(i for i, f in enumerate(fill) if f >= (1 - Fraction(FILL_MARGIN)) * best)
+
+
+def product_launches(name: str, args) -> list[tuple[int, int, int, int, bool, bool]]:
+    """(batch, M, K, N, a_batched, b_batched) of each launch of the product
+    kernel that probe ``name`` makes, in order: ``x @ s`` is a right product,
+    ``s @ x`` a left one, and ``upsample_matmul`` makes ``mid = x @ sw``,
+    then ``sh @ mid``.  What the wrapper launches, for reports and tests;
+    the wrapper itself picks each launch's tile from its own operands."""
+    C, H, W = args[0].shape
+    if name == "lane_downsample_matmul":
+        return [(C, H, W, args[1].shape[1], True, False)]
+    if name == "sublane_downsample_matmul":
+        return [(C, args[1].shape[0], H, W, False, True)]
+    if name == "upsample_matmul":
+        sh, sw = args[1:]
+        return [(C, H, W, sw.shape[1], True, False), (C, sh.shape[0], H, sw.shape[1], False, True)]
+    raise ValueError(f"{name} is not a product probe")
+
+
+def product_tiles(name: str, args, sms: int) -> list[int]:
+    """The tile row of each product launch of probe ``name`` on ``args``."""
+    return [select_tile(b, M, N, ab, bb, sms) for b, M, _, N, ab, bb in product_launches(name, args)]
+
+
+def tile_name(i: int) -> str:
+    return "x".join(map(str, MATMUL_TILES[i]))
+
+
 def _check(name: str, args, shapes) -> None:
     """Device, dtype, contiguity and size checks of a launch with outputs
     of ``shapes``."""
@@ -256,7 +321,7 @@ class PlaneOpsKernels:
             p, i = ctypes.c_void_p, ctypes.c_int
             argtypes = {
                 "plane_strided_slice": [p, p] + [i] * 5 + [p],
-                "plane_select_matmul": [p] * 3 + [i] * 6 + [p],
+                "plane_select_matmul": [p] * 3 + [i] * 7 + [p],
                 "plane_repeat_upsample": [p, p] + [i] * 3 + [p],
                 "plane_grouped_conv3": [p] * 3 + [i] * 3 + [p],
                 "plane_row_mask": [p] * 3 + [i] * 4 + [p],
@@ -280,11 +345,19 @@ class PlaneOpsKernels:
             raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
     def _matmul(self, name: str, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -> None:
-        """out (batch, M, N) = a @ b, one of the two a batch of planes
-        (3-D), the other one shared matrix (2-D)."""
+        """out (batch, M, N) = a @ b, one of the two a batch of planes (3-D),
+        the other one shared matrix (2-D), in the tile row ``select_tile``
+        picks for these operands on this card."""
+        sms = torch.cuda.get_device_properties(out.device).multi_processor_count
+        tile = select_tile(out.shape[0], a.shape[-2], b.shape[-1], a.dim() == 3, b.dim() == 3, sms)
+        self.launch_matmul(name, a, b, out, tile)
+
+    def launch_matmul(self, name: str, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
+                      tile: int) -> None:
+        """``_matmul`` in block tiles ``MATMUL_TILES[tile]``."""
         M, K, N = a.shape[-2], a.shape[-1], b.shape[-1]
         self._launch(name, "plane_select_matmul", a, b, out, out.shape[0], M, K, N,
-                     int(a.dim() == 3), int(b.dim() == 3))
+                     int(a.dim() == 3), int(b.dim() == 3), tile)
 
     def _call(self, name: str, *args):
         """The plain version when every tensor lies on the CPU; otherwise the

@@ -40,7 +40,25 @@ from gdb_nerf_tpu_torch.runtime.renderer import set_float32_numerics
 
 C, H, W = 8, 64, 256
 # grouped_conv3 against another float32 sum order: the plane convs' tolerance.
+# Products with a random matrix sum in the same order with fmaf against a
+# multiply and an add: the same tolerance.
 CONV_ATOL, CONV_RTOL = 1e-5, 1e-4
+# Products with a random matrix, (probe, C, H, W, the matrix's other side):
+# on 132 SMs the wrapper picks each tile row once for the right product
+# x @ s (M = C*H folded, K = W, N = the width) and once for the left s @ x
+# (M = the height, K = H, N = W), on the 16-byte path (K and N multiples of
+# 4) and on the 4-byte one.  The card tests and the smoke run them.
+TILE_CASES = [
+    ("lane_downsample_matmul", 8, 534, 100, 32),    # 64x128, 16-byte
+    ("lane_downsample_matmul", 2, 30, 37, 33),      # 32x128, 4-byte
+    ("sublane_downsample_matmul", 2, 45, 33, 30),   # 64x128, 4-byte
+    ("sublane_downsample_matmul", 2, 64, 32, 37),   # 32x128, 16-byte
+]
+# Widths that take each strided-slice path: W % 8 == 0 (the vector paths
+# of both strides), W % 4 == 0 only (sh = 2 vector, sw = 2 scalar), W odd
+# (scalar); with H odd.
+SLICE_WIDTHS = (648, 644, 637)
+SLICE_C, SLICE_H = 3, 37
 
 
 def _selection(rows: int, cols: int, r, c) -> torch.Tensor:
@@ -77,10 +95,64 @@ def inputs(name: str, C: int, H: int, W: int, device, seed: int = 0) -> tuple[to
     return tuple(a.to(device) for a in args)
 
 
+def random_product_inputs(name: str, C: int, H: int, W: int, width: int, device,
+                          seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """x ~ N(0, 1) (C, H, W) and a matrix ~ N(0, 1/K), which keeps the
+    outputs near 1: s (W, width) for ``lane_downsample_matmul`` (x @ s),
+    s (width, H) for ``sublane_downsample_matmul`` (s @ x)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(C, H, W, generator=g)
+    if name == "lane_downsample_matmul":
+        s = torch.randn(W, width, generator=g) / W**0.5
+    else:
+        s = torch.randn(width, H, generator=g) / H**0.5
+    return x.to(device), s.to(device)
+
+
+def close(got: torch.Tensor, want: torch.Tensor) -> tuple[float, bool]:
+    """Max abs difference, and whether |got - want| <= CONV_ATOL + CONV_RTOL
+    |want| everywhere."""
+    d = (got - want).abs()
+    return float(d.max()), bool((d <= CONV_ATOL + CONV_RTOL * want.abs()).all())
+
+
 def conv_weights_oihw(w: torch.Tensor) -> torch.Tensor:
     """w (co, 9, ci, 1), tap t = 3 ky + kx, as F.conv2d's (co, ci, 3, 3)."""
     co, _, ci, _ = w.shape
     return w[..., 0].reshape(co, 3, 3, ci).permute(0, 3, 1, 2).contiguous()
+
+
+def library_call(name: str, args):
+    """Probe ``name``'s function as PyTorch's own calls on ``args`` (made
+    once, outside the call): the yardstick that ``chip_smoke.py`` and
+    ``ab_plane_ops`` time beside the K7 kernels; no wrapper runs it.  The
+    products are ``torch.matmul`` in float32, which must equal the plain
+    versions on a 0/1 matrix unless TF32 is on."""
+    x = args[0]
+    if name == "sublane_stride2":
+        return lambda: x[:, ::2].contiguous()
+    if name == "lane_stride2":
+        return lambda: x[..., ::2].contiguous()
+    if name == "lane_downsample_matmul":
+        return lambda: torch.matmul(x, args[1])
+    if name == "sublane_downsample_matmul":
+        return lambda: torch.matmul(args[1], x)
+    if name == "repeat_upsample":
+        return lambda: F.interpolate(x[None], scale_factor=2, mode="nearest")[0]
+    if name == "upsample_matmul":
+        return lambda: torch.matmul(args[1], torch.matmul(x, args[2]))
+    if name == "grouped_conv3":
+        w = conv_weights_oihw(args[1])
+        return lambda: F.conv2d(x[None], w)[0]
+    if name == "dyn_row_mask":
+        c, h, w = x.shape
+        rows = torch.arange(h, device=x.device)[None, :, None]
+        blocks = x.view(c, 2, h // 2, w)[:, :, :h // 4, :w // 2]
+        return lambda: (torch.where(rows < h - ROW_MASK_OFFSET, x, 0.0),
+                        blocks.reshape(c, h // 2, w // 2))
+    if name == "pad_value":
+        return lambda: F.pad(x, (1, 1, 1, 1))
+    raise ValueError(f"unknown probe {name!r}")
 
 
 def expected(name: str, args) -> tuple[torch.Tensor, ...]:
@@ -115,12 +187,13 @@ def agree(name: str, got, want) -> tuple[float, bool]:
     for g, r in zip(got, want, strict=True):
         if g.shape != r.shape or g.dtype != r.dtype:
             return float("inf"), False
-        d = (g - r).abs()
-        err = max(err, float(d.max()))
         if name == "grouped_conv3":
-            ok &= bool((d <= CONV_ATOL + CONV_RTOL * r.abs()).all())
+            e, close_ok = close(g, r)
+            ok &= close_ok
         else:
+            e = float((g - r).abs().max())
             ok &= torch.equal(g, r)
+        err = max(err, e)
     return err, ok
 
 

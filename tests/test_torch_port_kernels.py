@@ -217,8 +217,8 @@ def probe_kernels():
 
 
 # The probe's size, then ragged planes: C5, H and W odd and not multiples of
-# any tile (64x64 products, 8x32 conv tiles), and one plane smaller than a
-# tile; the row mask takes H % 4 == 0 and W even.
+# any tile (product tiles of 64 and 128, 8x32 conv tiles), and one plane
+# smaller than a tile; the row mask takes H % 4 == 0 and W even.
 PROBE_CASES = [(8, 64, 256), (5, 37, 45), (3, 5, 7)]
 ROW_MASK_CASES = [(8, 64, 256), (5, 36, 46), (3, 4, 2)]
 
@@ -257,6 +257,43 @@ def test_select_matmul_with_a_random_matrix(probe_kernels, size):
         torch.cuda.synchronize()
         torch.testing.assert_close(got, plane_ops.REFERENCES[name](*args), atol=1e-5, rtol=1e-4)
     assert probe_kernels.launches["upsample_matmul"] == 1
+
+
+@pytest.mark.parametrize("case", probe_ops.TILE_CASES, ids=lambda c: "-".join(map(str, c)))
+@torch.no_grad()
+def test_select_matmul_at_each_tile_row(probe_kernels, case):
+    """A random matrix on the right and on the left at sizes where the
+    wrapper picks each tile row (probe_ops.TILE_CASES), within 1e-5 / 1e-4
+    of the plain version; then the same product from planes 4 bytes past a
+    16-byte boundary, which the kernel loads in 4-byte pieces."""
+    name, C, H, W, width = case
+    args = probe_ops.random_product_inputs(name, C, H, W, width, "cuda", seed=W)
+    want = plane_ops.REFERENCES[name](*args)
+    got = getattr(probe_kernels, name)(*args)
+    torch.cuda.synchronize()
+    err, ok = probe_ops.close(got, want)
+    assert ok, err
+    x = args[0]
+    shifted = torch.empty(x.numel() + 1, device="cuda")[1:].view(x.shape)
+    shifted.copy_(x)
+    err, ok = probe_ops.close(getattr(probe_kernels, name)(shifted, args[1]), want)
+    assert ok, err
+    assert probe_kernels.launches[name] == 2
+
+
+@pytest.mark.parametrize("W", probe_ops.SLICE_WIDTHS)
+@torch.no_grad()
+def test_strided_slice_at_each_path(probe_kernels, W):
+    """Widths that take each path of the strided slice (W % 8 == 0, W % 4
+    == 0 only, W odd), and a plane 4 bytes past a 16-byte boundary (the
+    scalar path): equal to the plain versions bit for bit."""
+    x = torch.randn(probe_ops.SLICE_C, probe_ops.SLICE_H, W, device="cuda")
+    shifted = torch.empty(x.numel() + 1, device="cuda")[1:].view(x.shape)
+    shifted.copy_(x)
+    for name in ("sublane_stride2", "lane_stride2"):
+        for t in (x, shifted):
+            assert torch.equal(getattr(probe_kernels, name)(t), plane_ops.REFERENCES[name](t)), name
+        assert probe_kernels.launches[name] == 2
 
 
 @torch.no_grad()

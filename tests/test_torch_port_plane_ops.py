@@ -15,14 +15,18 @@ and products with a random matrix sum float32 in another order than XLA:
 atol 1e-5, rtol 1e-4, the plane convs' tolerance.
 
 The CUDA kernels cannot run here; ``test_select_matmul_tile_replay``
-replays the product's tiling in torch from the constants of
-``csrc/plane_ops.cu``.
+replays the product's tiling of each tile row, and
+``test_strided_slice_path_replay`` the slice's paths and loops, in torch
+from the constants of ``csrc/plane_ops.cu``; ``test_wrapper_tile_choice``
+holds the wrapper's choice of tile row.
 """
 
 import os
 import re
+import shutil
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -407,52 +411,290 @@ def _cu_constants() -> dict:
             re.findall(r"\b(k\w+) = (\d+)", plane_ops.SOURCE.read_text())}
 
 
-@pytest.mark.parametrize("M, K, N", [(64, 16, 64), (37, 45, 19), (130, 33, 70)])
-def test_select_matmul_tile_replay(M, K, N):
-    """The product's tiling, replayed in torch: blocks of kTileM x kTileN
-    outputs, K in steps of kTileK with the tile's edge filled with zeros,
-    each output a fused sum over k in order (float64 products rounded once,
-    as fmaf rounds).  On ragged sizes every output is written once, and with
-    a random matrix the replay equals the plain version within the tolerance;
-    with a 0/1 matrix, bit for bit."""
+def test_tile_table_is_the_kernels():
     k = _cu_constants()
-    tm, tn, tk, micro = k["kTileM"], k["kTileN"], k["kTileK"], k["kMicro"]
-    assert (tm // micro) * (tn // micro) == k["kThreads"]
-    g = torch.Generator().manual_seed(M)
-    a = torch.randn(2, M, K, generator=g)
-    for b, zero_one in ((torch.randn(K, N, generator=g) / K**0.5, False),
-                        ((torch.rand(K, N, generator=g) < 0.05).float(), True)):
-        out = torch.full((2, M, N), float("nan"))
-        for m0 in range(0, M, tm):
-            for n0 in range(0, N, tn):
-                acc = torch.zeros(2, tm, tn)
+    assert k["kMatmulTiles"] == len(plane_ops.MATMUL_TILES)
+    assert plane_ops.MATMUL_TILES == tuple((k[f"kTile{i}M"], k[f"kTile{i}N"])
+                                           for i in range(k["kMatmulTiles"]))
+
+
+# Each product launch of the probes at the FPN's plane size (C8, 512x640):
+# its blocks per tile row (64x128, 32x128), and the row the wrapper picks on
+# 132 SMs.
+TILE_TABLE = {
+    "lane_downsample_matmul": [([192, 384], "32x128")],
+    "sublane_downsample_matmul": [([160, 320], "32x128")],
+    "upsample_matmul": [([640, 1280], "64x128"), ([1280, 2560], "64x128")],
+}
+
+
+@pytest.mark.parametrize("size, want", [
+    ((8, 512, 640), {n: [t for _, t in rows] for n, rows in TILE_TABLE.items()}),
+    ((8, 64, 256), {"lane_downsample_matmul": ["32x128"], "sublane_downsample_matmul": ["64x128"],
+                    "upsample_matmul": ["32x128", "32x128"]}),
+    ((5, 509, 637), {"lane_downsample_matmul": ["64x128"], "sublane_downsample_matmul": ["64x128"],
+                     "upsample_matmul": ["64x128", "64x128"]}),
+], ids=["fpn", "probe", "ragged"])
+def test_wrapper_tile_choice(size, want):
+    """The tile row the wrapper passes for each product launch: the largest
+    whose blocks fill 132 SMs within 20 % of the most even row.  At C8
+    512x640 the downsamples' 192 or 160 blocks of 64x128 leave a quarter to
+    a third of the card idle in their last wave (fill 0.73, 0.61), so they
+    take 32x128 (fill 0.97, 0.81); the upsample's products stay on 64x128
+    (fill 0.81, 0.97), as the probe size's 16 blocks of either row take
+    64x128.  A right product counts its batch folded into M."""
+    for name in plane_ops.PRODUCTS:
+        args = probe_ops.inputs(name, *size, "meta")
+        got = [plane_ops.tile_name(i) for i in plane_ops.product_tiles(name, args, sms=132)]
+        assert got == want[name], name
+        if size == (8, 512, 640):
+            counts = [plane_ops.tile_counts(b, M, N, ab, bb)
+                      for b, M, _, N, ab, bb in plane_ops.product_launches(name, args)]
+            assert counts == [c for c, _ in TILE_TABLE[name]], name
+    assert float(plane_ops.tile_fill(2560, 132)) == pytest.approx(2560 / 2640)
+    # Another card changes the choice: on 96 SMs the 192 blocks of 64x128
+    # fill two waves exactly.
+    assert plane_ops.select_tile(8, 512, 320, True, False, sms=96) == 0
+
+
+def test_tile_cases_take_each_row():
+    """probe_ops.TILE_CASES, which the card tests and the smoke run, make
+    the wrapper pick each tile row on 132 SMs for the right product and for
+    the left one, and take both the 16-byte path (K and N multiples of 4)
+    and the 4-byte one on either side."""
+    rows = {}
+    for name, C, H, W, width in probe_ops.TILE_CASES:
+        args = probe_ops.random_product_inputs(name, C, H, W, width, "meta")
+        (tile,) = plane_ops.product_tiles(name, args, sms=132)
+        (_, _, K, N, _, _), = plane_ops.product_launches(name, args)
+        rows.setdefault(name, set()).add(tile)
+        rows.setdefault((name, "16-byte"), set()).add(K % 4 == 0 and N % 4 == 0)
+    assert rows == {"lane_downsample_matmul": {0, 1}, "sublane_downsample_matmul": {0, 1},
+                    ("lane_downsample_matmul", "16-byte"): {True, False},
+                    ("sublane_downsample_matmul", "16-byte"): {True, False}}
+
+
+@pytest.mark.parametrize("size", [(8, 512, 640), (8, 64, 256), (5, 509, 637)],
+                         ids=["fpn", "probe", "ragged"])
+@pytest.mark.parametrize("name", plane_ops.PRODUCTS)
+def test_wrapper_launches_are_product_launches(monkeypatch, name, size):
+    """The product wrapper, with its launches caught before the library on
+    meta tensors of a 132-SM card, launches what product_launches lists, in
+    that order, each in the tile row product_tiles reports."""
+    launched = []
+    monkeypatch.setattr(plane_ops, "_check", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: SimpleNamespace(multi_processor_count=132))
+    monkeypatch.setattr(plane_ops.PlaneOpsKernels, "_launch",
+                        lambda self, name, entry, *args: launched.append((entry, args)))
+    kernels = plane_ops.PlaneOpsKernels()
+    args = probe_ops.inputs(name, *size, "meta")
+    getattr(kernels, name)(*args)
+    assert [e for e, _ in launched] == ["plane_select_matmul"] * len(launched)
+    assert [(b, M, K, N, bool(ab), bool(bb)) for _, (_, _, _, b, M, K, N, ab, bb, _) in launched] \
+        == plane_ops.product_launches(name, args)
+    assert [t for _, (*_, t) in launched] == plane_ops.product_tiles(name, args, sms=132)
+    assert kernels.launches[name] == 1
+
+
+def _replay_select_matmul(a, b, tile):
+    """out = a @ b as select_matmul_kernel computes it with tile row
+    ``tile``: a right product (a batched, b shared) folds the batch into M;
+    each block takes K in stages of kTile<i>K with the edges zero-filled, and
+    each output is a chain of fmaf over k in order (float64 products, exact
+    for float32 inputs, rounded once to float32 a step).  Checks that the
+    block's threads own each output once and that a stage's pieces of A and
+    B are each loaded once; returns out with NaN where nothing was written,
+    and asserts nothing is written twice."""
+    k = _cu_constants()
+    bm, bn, tk = k[f"kTile{tile}M"], k[f"kTile{tile}N"], k[f"kTile{tile}K"]
+    tm, tn = k[f"kTile{tile}TM"], k[f"kTile{tile}TN"]
+    threads = (bm // tm) * (bn // tn)
+    assert k["kMatmulThreadsPerSM"] // threads * threads == k["kMatmulThreadsPerSM"]
+    # The thread layout: warps of 4 x 8 threads; rows p pm + ty*4 + i,
+    # columns q pn + tx*4 + j, in 4x4 patches pm = bm / (tm / 4) apart.
+    owned = torch.zeros(bm, bn, dtype=torch.int32)
+    a_pieces = torch.zeros(bm, tk // 4, dtype=torch.int32)
+    warps_n, pm, pn = bn // tn // 8, bm // (tm // 4), bn // (tn // 4)
+    for t in range(threads):
+        warp, lane = divmod(t, 32)
+        ty, tx = (warp // warps_n) * 4 + lane // 8, (warp % warps_n) * 8 + lane % 8
+        rows = [(i // 4) * pm + ty * 4 + i % 4 for i in range(tm)]
+        cols = [(j // 4) * pn + tx * 4 + j % 4 for j in range(tn)]
+        owned[torch.tensor(rows)[:, None], torch.tensor(cols)] += 1
+        for q in range(bm * tk // 4 // threads):
+            e = t + q * threads
+            a_pieces[e % 16 + 16 * ((e // 32) % (bm // 16)),
+                     (e % 32) // 16 + 2 * ((e // 32) // (bm // 16))] += 1
+    assert bool((owned == 1).all()) and bool((a_pieces == 1).all())
+    assert (tk * bn // 4) % threads == 0  # B's 16-byte pieces split evenly
+
+    right = a.dim() == 3 and b.dim() == 2
+    if right:
+        C, M, K = a.shape
+        A, B = a.reshape(1, C * M, K), b[None]
+    else:
+        A, B = (a[None] if a.dim() == 2 else a), b
+    batch = max(A.shape[0], B.shape[0])
+    M, K, N = A.shape[1], A.shape[2], B.shape[2]
+    out = torch.full((batch, M, N), float("nan"))
+    for z in range(batch):
+        Az, Bz = A[z % A.shape[0]], B[z % B.shape[0]]
+        for m0 in range(0, M, bm):
+            for n0 in range(0, N, bn):
+                acc = torch.zeros(bm, bn)
                 for k0 in range(0, K, tk):
-                    sa = torch.zeros(2, tm, tk)
-                    sb = torch.zeros(tk, tn)
-                    sa[:, :min(tm, M - m0), :min(tk, K - k0)] = a[:, m0:m0 + tm, k0:k0 + tk]
-                    sb[:min(tk, K - k0), :min(tn, N - n0)] = b[k0:k0 + tk, n0:n0 + tn]
+                    sa = torch.zeros(bm, tk)
+                    sb = torch.zeros(tk, bn)
+                    sa[:min(bm, M - m0), :min(tk, K - k0)] = Az[m0:m0 + bm, k0:k0 + tk]
+                    sb[:min(tk, K - k0), :min(bn, N - n0)] = Bz[k0:k0 + tk, n0:n0 + bn]
                     for kk in range(tk):
-                        prod = sa[:, :, kk, None].double() * sb[kk].double()
-                        acc = (acc.double() + prod).float()  # one rounding: fmaf
-                hh, ww = min(tm, M - m0), min(tn, N - n0)
-                assert out[:, m0:m0 + hh, n0:n0 + ww].isnan().all()  # written once
-                out[:, m0:m0 + hh, n0:n0 + ww] = acc[:, :hh, :ww]
-        want = plane_ops.matmul_right(a, b)
-        if zero_one:
-            assert torch.equal(out, want)
+                        acc = (acc.double() + sa[:, kk, None].double() * sb[kk].double()).float()
+                hh, ww = min(bm, M - m0), min(bn, N - n0)
+                assert out[z, m0:m0 + hh, n0:n0 + ww].isnan().all()  # written once
+                out[z, m0:m0 + hh, n0:n0 + ww] = acc[:hh, :ww]
+    return out.reshape(a.shape[0], -1, N) if right else out
+
+
+@pytest.mark.parametrize("side", ["right", "left"])
+@pytest.mark.parametrize("tile", range(len(plane_ops.MATMUL_TILES)),
+                         ids=[plane_ops.tile_name(i) for i in range(len(plane_ops.MATMUL_TILES))])
+def test_select_matmul_tile_replay(tile, side):
+    """The product's tiling of each table row, replayed in torch from the
+    constants of csrc/plane_ops.cu on ragged sizes (M, N and K not multiples
+    of any tile or stage; the right product's planes straddle row tiles once
+    folded): every output is written once, a 0/1 matrix gives the plain
+    version's bits, a random one is within the tolerance."""
+    g = torch.Generator().manual_seed(tile)
+    C, H, W = 2, 69, 37
+    x = torch.randn(C, H, W, generator=g)
+    width = 130 if side == "right" else 67
+    for zero_one in (False, True):
+        if side == "right":
+            s = ((torch.rand(W, width, generator=g) < 0.05).float() if zero_one
+                 else torch.randn(W, width, generator=g) / W**0.5)
+            got, want = _replay_select_matmul(x, s, tile), plane_ops.matmul_right(x, s)
         else:
-            torch.testing.assert_close(out, want, atol=ATOL, rtol=RTOL)
+            s = ((torch.rand(width, H, generator=g) < 0.05).float() if zero_one
+                 else torch.randn(width, H, generator=g) / H**0.5)
+            got, want = _replay_select_matmul(s, x, tile), plane_ops.matmul_left(s, x)
+        if zero_one:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+def _replay_strided_slice(x, sh, sw):
+    """out = x[:, ::sh, ::sw] as plane_strided_slice computes it from a
+    16-byte aligned x: its path (a contiguous row copy if sw == 1 and W % 4
+    == 0, pairs of 16-byte loads if sw == 2 and W % 8 == 0, else 4-byte
+    elements), its block shape and grid, and the row and piece loops of
+    strided_slice_kernel, from the constants of csrc/plane_ops.cu.  Returns
+    (path, out, writes per output, whether every 16-byte access was aligned)."""
+    k = _cu_constants()
+    C, H, W = x.shape
+    Ho, Wo = -(-H // sh), -(-W // sw)
+    rows = C * Ho
+    if sw == 1 and W % 4 == 0:
+        path = k["kSliceRows"]
+    elif sw == 2 and W % 8 == 0:
+        path = k["kSlicePairs"]
+    else:
+        path = k["kSliceScalar"]
+    units = Wo if path == k["kSliceScalar"] else Wo // 4
+    bx = min(k["kThreads"], -(-units // 32) * 32)
+    by = k["kThreads"] // bx
+    gx, gy = -(-units // (bx * k["kSliceUnits"])), min(-(-rows // by), 65535)
+    row = np.concatenate([np.arange(y, rows, gy * by) for y in range(gy * by)])
+    u = np.concatenate([np.arange(t, units, gx * bx) for t in range(gx * bx)])
+    row, u = np.repeat(row, len(u)), np.tile(u, len(row))
+    c = row // Ho
+    base_in = (c * H + (row - c * Ho) * sh) * W
+    base_out = row * Wo
+    if path == k["kSliceRows"]:
+        src = base_in[:, None] + 4 * u[:, None] + np.arange(4)
+        dst = base_out[:, None] + 4 * u[:, None] + np.arange(4)
+        aligned = bool((src[:, 0] % 4 == 0).all() and (dst[:, 0] % 4 == 0).all())
+    elif path == k["kSlicePairs"]:
+        src = base_in[:, None] + 8 * u[:, None] + 2 * np.arange(4)
+        dst = base_out[:, None] + 4 * u[:, None] + np.arange(4)
+        aligned = bool((src[:, 0] % 4 == 0).all() and (dst[:, 0] % 4 == 0).all())
+    else:
+        src, dst, aligned = base_in + u * sw, base_out + u, True
+    flat = x.reshape(-1).numpy()
+    out = np.full(rows * Wo, np.nan, np.float32)
+    writes = np.zeros(rows * Wo, np.int64)
+    np.add.at(writes, dst.reshape(-1), 1)
+    out[dst.reshape(-1)] = flat[src.reshape(-1)]
+    return path, torch.from_numpy(out.reshape(C, Ho, Wo)), writes, aligned
+
+
+@pytest.mark.parametrize("W", [637, 644, 648, 640])
+def test_strided_slice_path_replay(W):
+    """Which path each stride takes at W: 637 (odd) the scalar one for both;
+    644 (W % 4 == 0, not % 8) the row copy for sh = 2 but the scalar path
+    for sw = 2, whose output rows of 322 floats start 16-byte aligned only
+    on even rows; 648 and 640 the vector paths for both.  Every output is
+    written once and equals x[:, ::sh, ::sw]; every 16-byte access of a
+    vector path is aligned."""
+    k = _cu_constants()
+    C, H = 2, 7
+    x = torch.arange(C * H * W, dtype=torch.float32).reshape(C, H, W)
+    want_path = {
+        (2, 1): k["kSliceRows"] if W % 4 == 0 else k["kSliceScalar"],
+        (1, 2): k["kSlicePairs"] if W % 8 == 0 else k["kSliceScalar"],
+    }
+    for (sh, sw), want in want_path.items():
+        path, out, writes, aligned = _replay_strided_slice(x, sh, sw)
+        assert path == want, (sh, sw)
+        assert (writes == 1).all() and aligned, (sh, sw)
+        assert torch.equal(out, x[:, ::sh, ::sw])
+    if W == 644:  # why sw = 2 needs W % 8 == 0: odd output rows start at 322 * r
+        assert 322 % 4 != 0
+
+
+def test_ab_tool_needs_a_gpu_and_takes_the_smokes_library_calls(monkeypatch):
+    """The A/B tool stops without a GPU; on the card it runs the probes that
+    the two redesigned kernels serve, in turns that give each version two
+    places, one early and one late."""
+    from gdb_nerf_tpu_torch.tools import ab_plane_ops
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        ab_plane_ops.main([str(plane_ops.SOURCE.parents[2])])
+    assert exc.value.code not in (None, 0)
+    assert set(ab_plane_ops.NAMES) == set(plane_ops.PRODUCTS) | {"sublane_stride2", "lane_stride2"}
+    order = ab_plane_ops.ORDER
+    assert order == order[::-1] and sorted(order) == sorted(2 * ("library", "other", "this"))
+
+
+def test_ab_tool_imports_the_other_trees_wrappers(tmp_path):
+    """The A/B tool imports another tree's plane_ops beside this one: that
+    tree's source and build directory, this tree's modules left in place,
+    and on CPU tensors that tree's plain versions."""
+    from gdb_nerf_tpu_torch.tools import ab_plane_ops
+
+    package = plane_ops.SOURCE.parents[1]
+    shutil.copytree(package, tmp_path / package.name,
+                    ignore=shutil.ignore_patterns("__pycache__", "*.so"))
+    before = dict(sys.modules)
+    other = ab_plane_ops.import_plane_ops(tmp_path)
+    assert other is not plane_ops and sys.modules == before
+    assert other.SOURCE == tmp_path / package.name / "csrc" / "plane_ops.cu"
+    assert other.build_library.__globals__["BUILD_DIR"] == tmp_path / "build" / "kernels"
+    args = probe_ops.inputs("upsample_matmul", 3, 12, 18, "cpu")
+    assert torch.equal(other.PlaneOpsKernels().upsample_matmul(*args),
+                       plane_ops.upsample_matmul_reference(*args))
 
 
 def test_smoke_library_calls_equal_the_plain_versions():
-    """chip_smoke.py times PyTorch's own call beside each K7 kernel and holds
-    it to the plain version (a 0/1 product in TF32 would differ); on the CPU
-    the two agree as they must on the card."""
-    import chip_smoke
-
+    """chip_smoke.py times PyTorch's own call (probe_ops.library_call)
+    beside each K7 kernel and holds it to the plain version (a 0/1 product
+    in TF32 would differ); on the CPU the two agree as they must on the
+    card."""
     for name in plane_ops.KERNELS:
         args = probe_ops.inputs(name, 3, 12, 18, "cpu")
-        err, ok = probe_ops.agree(name, chip_smoke.probe_library_call(name, args)(),
+        err, ok = probe_ops.agree(name, probe_ops.library_call(name, args)(),
                                   plane_ops.REFERENCES[name](*args))
         assert ok, (name, err)
 
