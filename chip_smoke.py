@@ -9,7 +9,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      started together (build seconds, ptxas info);
   2. the bundle-head kernel against its plain PyTorch version on the card
      at the dtu_eval head shapes (N = 245,760 samples, V = 3; V = 2; a
-     ragged N), in float32 and bf16, with both times and the bound;
+     ragged N), in float32 and bf16, with both times and the bound, after
+     a check that ptxas spilled nothing in the kernel's build;
   2b. the conv microbench path (gdb_nerf_tpu_torch/tools/microbench_conv.py)
      driven in-process, with the plane-conv kernels' launch counts set to 0
      before it and read after: its check (float32 and bf16, against cuDNN)
@@ -97,12 +98,12 @@ DTU_EVAL = {
     },
 }
 
-# bf16 kernel vs the plain version in bf16 (PERF.md, "H100 port"): both use
-# the head's bf16 weights (sigma's layer float32), but the plain version rounds
-# every layer's output to bf16 while the kernel accumulates in float32 and
-# rounds only feat.  Replayed on the CPU at these shapes the two differ by at
-# most 0.0078 (2 bf16 ulps at 1.0) in feat and 0.0012 in sigma; the bound
-# leaves ~4x room.
+# bf16 kernel vs the plain version in bf16: both use the head's bf16 weights
+# (sigma's layer float32) and round to bf16 at the same points, but sum in
+# another order (the kernel on the tensor cores).  Replayed on the CPU with
+# the golden head (tests/test_torch_port_head.py) the two differ by at most
+# 0.0078 (1 bf16 ulp at 1-2) in feat and 0.0007 in sigma; the bound leaves
+# ~4x room.
 BF16_ATOL = 0.03
 F32_ATOL = F32_RTOL = 1e-4
 # Plane convs against their plain versions: float32 on both sides, the
@@ -215,14 +216,28 @@ def phase_device_and_build():
     return tuple(libraries.values())
 
 
+def spilled_bytes(build_log: str) -> int:
+    """Bytes of spill stores and loads that ptxas reports in a build log."""
+    import re
+
+    return sum(int(a) + int(b) for a, b in
+               re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", build_log))
+
+
 def phase_kernel_vs_plain(kernel, heads):
     """K1 against bundle_head_reference on the card, each dtype with its own
-    head (``heads[dtype]``).  Returns the JSON fields."""
+    head (``heads[dtype]``), after a check that ptxas spilled nothing in
+    either instantiation.  Returns the JSON fields: float32's at the top,
+    bf16's under ``bf16``."""
     import torch
 
     from gdb_nerf_tpu_torch.kernels.bundle_head import bundle_head_reference, work
     from gdb_nerf_tpu_torch.kernels.measure import bound_ms, timed_ms
 
+    spill = spilled_bytes(kernel.build_log)
+    if spill or "spill" not in kernel.build_log:
+        raise AssertionError(f"bundle_head: ptxas reports {spill} bytes of spill (or no report)")
+    print("[k1] ptxas: no spill in either instantiation")
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = torch.device("cuda")
     result = {}
@@ -257,10 +272,13 @@ def phase_kernel_vs_plain(kernel, heads):
                 line += f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
                 b_ms, b_by = bound_ms(*work(n, V, dt), dt)
                 line += f" bound {b_ms:.4f} ms ({b_by})"
+                fields = {"max_abs_err": max(err_s, err_f), "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                          "dtype": str(dt)[6:]}
                 if dt == torch.float32:
-                    result = {"max_abs_err": max(err_s, err_f), "ms": ms, "plain_ms": plain_ms,
-                              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                              "dtype": "float32"}
+                    result.update(fields)
+                else:
+                    result["bf16"] = fields
             print(line)
             if not ok:
                 raise AssertionError(f"bundle_head kernel disagrees with its plain version: {line}")

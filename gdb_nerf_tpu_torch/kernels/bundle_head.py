@@ -5,17 +5,18 @@ Pallas kernel, body ``_kernel``), which runs the whole head per sample tile
 with every intermediate kept in VMEM.
 
 On Hopper the head is a chain of about twelve small dense layers (widths 4
-to 88) with two softmaxes over the 2-4 source views: ~32.5 kFLOP per
-sample against ~0.84 KB of float32 input and output, so it is bound by
-arithmetic issue, not by device memory, once the intermediates stay on
-chip.  The kernel (``csrc/bundle_head.cu``) gives every sample one thread:
-all 11,930 head weights sit once per block in shared memory as float32 (every
-thread of a warp reads the same weight, a broadcast), the activations live
-in registers, the view softmaxes run online so no per-view activation is
-stored, and accumulation is float32 for float32 or bf16 inputs.  Blocks
-stride over 128-sample tiles, so the weights are staged once per resident
-block rather than once per tile.  Moving the dense layers onto the tensor
-cores is later work.
+to 88) with two softmaxes over the 2-4 source views: ~32.6 kFLOP per
+sample against ~0.84 KB of float32 input and output.  The library
+(``csrc/bundle_head.cu``) has one kernel per input type behind one entry
+point; both restage the same float32 pack (``pack_weights``) in shared
+memory once per resident block.  float32 is bound by FMA issue: a thread
+per sample, float32 FMAs only, every weight row padded to a float4 so one
+broadcast shared-memory load feeds four FMAs.  bf16 is bound by its bytes:
+a warp per 16 samples runs every dense layer on the tensor cores
+(``mma.sync`` m16n8k16, float32 accumulation), rounds to bf16 where the
+plain version rounds, and keeps the view statistics and softmaxes in
+float32; its weights are bf16 values (``cast_weights``), sigma's layer
+float32.
 
 ``BundleHeadKernel`` is the wrapper: on CPU tensors it runs
 ``bundle_head_reference``; on CUDA tensors it builds the kernel (``nvcc``,

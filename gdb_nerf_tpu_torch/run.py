@@ -6,15 +6,14 @@ Same surface as the JAX package's ``run.py --type network``: the YAML
 config with dotted ``key value`` overrides (``synthetic True`` renders
 procedural scenes when no dataset is on disk).  ``device`` selects the
 device (default ``cuda``; ``device cpu`` runs the plain PyTorch path on
-the CPU).  Weights come from ``<trained_model_dir>/latest.pth`` (or
-``<epoch>.pth`` with ``test.epoch``) when present, else from a seeded
-random initialization.  Latency excludes the first request, and the batch
+the CPU).  Weights come from ``trained_model_dir``: that file, or in that
+directory ``<epoch>.pth`` with ``test.epoch``, else ``latest.pth``, else
+the highest-numbered ``<n>.pth``; without one, from a seeded random
+initialization.  Latency excludes the first request, and the batch
 transfer stays outside the timer.
 """
 
 from __future__ import annotations
-
-import os
 
 import torch
 
@@ -22,19 +21,19 @@ from gdb_nerf_tpu_torch.config import make_cfg, make_parser
 from gdb_nerf_tpu_torch.datasets import make_data_loader
 from gdb_nerf_tpu_torch.runtime.registry import make_network
 from gdb_nerf_tpu_torch.runtime.renderer import Renderer, to_device
+from gdb_nerf_tpu_torch.utils.checkpoint import load_network
 
 
 def load_weights(network: torch.nn.Module, cfg) -> None:
-    """Load the reference-format checkpoint ({'net': state_dict, ...}) if
-    there is one; keep the random initialization otherwise."""
-    epoch = cfg.test.epoch
-    name = "latest.pth" if epoch == -1 else f"{epoch}.pth"
-    path = os.path.join(cfg.trained_model_dir, name)
-    if not os.path.exists(path):
-        print(f"[run] no checkpoint at {path}; using randomly initialized weights")
+    """Load the reference-format checkpoint ({'net': state_dict, ...}) that
+    ``utils.checkpoint.load_network`` picks; keep the random initialization
+    when there is none."""
+    try:
+        state, path = load_network(cfg.trained_model_dir, cfg.test.epoch)
+    except FileNotFoundError:
+        print(f"[run] no checkpoint in {cfg.trained_model_dir}; using randomly initialized weights")
         return
-    blob = torch.load(path, map_location="cpu", weights_only=True)
-    network.load_state_dict(blob.get("net", blob), strict=True)
+    network.load_state_dict(state, strict=True)
     print(f"[run] loaded {path}")
 
 

@@ -28,10 +28,7 @@ without one, or if a version differs from the plain one.
 from __future__ import annotations
 
 import argparse
-import importlib
 import json
-import subprocess
-import sys
 from pathlib import Path
 
 import torch
@@ -41,33 +38,13 @@ from gdb_nerf_tpu_torch.kernels.build import REPO
 from gdb_nerf_tpu_torch.kernels.measure import bound_ms, timed_ms
 from gdb_nerf_tpu_torch.runtime.renderer import set_float32_numerics
 from gdb_nerf_tpu_torch.tools import probe_ops
+from gdb_nerf_tpu_torch.tools.ab_common import card_name, import_from_tree, ptxas_lines
 
 NAMES = ("sublane_stride2", "lane_stride2", "lane_downsample_matmul",
          "sublane_downsample_matmul", "upsample_matmul")
 ORDER = ("library", "other", "this", "this", "other", "library")
 SIZE = (8, 512, 640)
 ITERS = 50
-PACKAGE = "gdb_nerf_tpu_torch"
-
-
-def ptxas_lines(log: str) -> list[str]:
-    return [line.strip() for line in log.splitlines()
-            if any(s in line for s in ("entry function", "registers", "spill", "smem"))]
-
-
-def import_plane_ops(root: Path):
-    """The ``kernels.plane_ops`` module of the port under ``root`` (another
-    tree's ``gdb_nerf_tpu_torch``), imported beside this tree's: its modules
-    leave ``sys.modules`` again, and it keeps its own ``build`` paths."""
-    ours = {k: sys.modules.pop(k) for k in list(sys.modules) if k.split(".")[0] == PACKAGE}
-    sys.path.insert(0, str(root))
-    try:
-        return importlib.import_module(f"{PACKAGE}.kernels.plane_ops")
-    finally:
-        sys.path.remove(str(root))
-        for k in [k for k in sys.modules if k.split(".")[0] == PACKAGE]:
-            del sys.modules[k]
-        sys.modules.update(ours)
 
 
 def compare(other, this: plane_ops.PlaneOpsKernels, name: str, device: torch.device) -> dict:
@@ -143,14 +120,13 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: this comparison runs on the card")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    card = card_name()
     print(card)
     device = torch.device("cuda")
     set_float32_numerics(tf32=False)
     this = plane_ops.PlaneOpsKernels()
     this.load()
-    other = import_plane_ops(args.other.resolve()).PlaneOpsKernels()
+    other = import_from_tree(args.other.resolve(), "kernels.plane_ops").PlaneOpsKernels()
     other.load()
     builds = {"this": ptxas_lines(this.build_log), "other": ptxas_lines(other.build_log)}
     for tag, lines in builds.items():

@@ -10,6 +10,8 @@
   synthetic loader, bit for bit: the JAX package's and the port's own.
 * The kernel wrapper takes the plain path for CPU tensors, leaving its
   launch counter at 0, and never falls back for tensors off the CPU.
+* The K1 A/B tool (``tools/ab_bundle_head.py``) stops without a GPU and
+  imports an earlier tree's bundle head beside this one.
 """
 
 import os
@@ -165,3 +167,42 @@ def test_wrapper_takes_plain_path_on_cpu_only(rng):
     with pytest.raises(ValueError, match="CUDA"):
         head(vox.to("meta"), payload.to("meta"), frd.to("meta"))
     assert head.kernel.launches == 0
+
+
+def test_ab_bundle_head_needs_a_gpu_and_imports_the_earlier_tree(tmp_path, monkeypatch):
+    """The K1 A/B tool stops without a GPU; its turns give each version two
+    places, one early and one late; and the earlier tree's bundle_head,
+    imported beside this one, keeps its own source and build directory and
+    runs its plain version on CPU tensors."""
+    import shutil
+
+    from gdb_nerf_tpu_torch.kernels import bundle_head
+    from gdb_nerf_tpu_torch.tools import ab_bundle_head
+    from gdb_nerf_tpu_torch.tools.ab_common import import_from_tree
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        ab_bundle_head.main([REPO])
+    assert exc.value.code not in (None, 0)
+    order = ab_bundle_head.ORDER
+    assert order == order[::-1] and sorted(order) == sorted(2 * ("plain", "earlier", "this"))
+    assert ab_bundle_head.F32_TOL == chip_smoke.F32_ATOL == chip_smoke.F32_RTOL
+    assert ab_bundle_head.BF16_ATOL == chip_smoke.BF16_ATOL
+    package = bundle_head.SOURCE.parents[1]
+    shutil.copytree(package, tmp_path / package.name,
+                    ignore=shutil.ignore_patterns("__pycache__", "*.so"))
+    before = dict(sys.modules)
+    earlier = import_from_tree(tmp_path, "kernels.bundle_head")
+    assert earlier is not bundle_head and sys.modules == before
+    assert earlier.SOURCE == tmp_path / package.name / "csrc" / "bundle_head.cu"
+    assert earlier.build_library.__globals__["BUILD_DIR"] == tmp_path / "build" / "kernels"
+    heads = ab_bundle_head.heads(torch.device("cpu"))
+    assert heads[torch.bfloat16].sigma[0].weight.dtype == torch.float32
+    assert heads[torch.bfloat16].lr0[0].weight.dtype == torch.bfloat16
+    rng = np.random.default_rng(0)
+    args = (torch.from_numpy(rng.standard_normal((50, 8)).astype(np.float32)),
+            torch.from_numpy(rng.uniform(0, 1, (3, 50, 31)).astype(np.float32)),
+            torch.from_numpy(rng.standard_normal((3, 50, 23)).astype(np.float32)))
+    head = heads[torch.float32]
+    for got, want in zip(earlier.BundleHeadKernel()(head, *args), bundle_head_reference(head, *args)):
+        assert torch.equal(got, want)

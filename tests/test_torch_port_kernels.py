@@ -9,6 +9,8 @@ so they run there with the conftest left out:
     python -m pytest --noconftest -q -m cuda tests/test_torch_port_kernels.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -18,11 +20,13 @@ from gdb_nerf_tpu_torch.kernels.bundle_head import BundleHeadKernel, bundle_head
 from gdb_nerf_tpu_torch.kernels.gather import GatherKernels
 from gdb_nerf_tpu_torch.kernels.plane_conv import PlaneConvKernels
 from gdb_nerf_tpu_torch.kernels.plane_ops import PlaneOpsKernels
+from gdb_nerf_tpu_torch.models.layers import cast_weights
 from gdb_nerf_tpu_torch.models.nerf_head import BundleNeRF
 from gdb_nerf_tpu_torch.runtime.renderer import set_float32_numerics
 from gdb_nerf_tpu_torch.tools import microbench_conv, microbench_gather, probe_ops
 
 pytestmark = pytest.mark.cuda
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "dtu_eval_golden.npz")
 
 
 @pytest.fixture
@@ -38,6 +42,21 @@ def head():
     return h.cuda().eval()
 
 
+@pytest.fixture
+def bf16_head():
+    """The golden fixture's head cast as the bf16 network casts it (sigma's
+    layer float32): the head of chip_smoke.py's phase 2, whose outputs are
+    of order 1, where the bf16 tolerance is set."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the bundle-head kernel has no CPU mode")
+    g = np.load(GOLDEN)
+    h = BundleNeRF(64, 16, 8).eval()
+    h.load_state_dict({k[len("sd/nerf."):]: torch.from_numpy(np.array(g[k]))
+                       for k in g.files if k.startswith("sd/nerf.")})
+    cast_weights(h, torch.bfloat16, keep=(h.sigma[0],))
+    return h.cuda()
+
+
 def inputs(n, V, dtype=torch.float32):
     rng = np.random.default_rng(1)
     arrays = (rng.standard_normal((n, 8)), rng.uniform(0, 1, (V, n, 31)),
@@ -45,19 +64,29 @@ def inputs(n, V, dtype=torch.float32):
     return tuple(torch.from_numpy(a.astype(np.float32)).cuda().to(dtype) for a in arrays)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("V", [2, 3, 4])
-@pytest.mark.parametrize("n", [1, 1000])
+@pytest.mark.parametrize("n", [1, 1000, 40_005])
 @torch.no_grad()
-def test_kernel_matches_plain_version(head, V, n):
+def test_kernel_matches_plain_version(request, V, n, dtype):
+    """n: one sample, a ragged tile, and more than one wave of 264 resident
+    128-sample blocks, ragged."""
+    head = request.getfixturevalue("head" if dtype == torch.float32 else "bf16_head")
     kernel = BundleHeadKernel()
-    vox, payload, frd = inputs(n, V)
+    vox, payload, frd = inputs(n, V, dtype)
     sigma, feat = kernel(head, vox, payload, frd)
     torch.cuda.synchronize()
     assert kernel.launches == 1
+    assert sigma.dtype == torch.float32 and feat.dtype == dtype
     s_ref, f_ref = bundle_head_reference(head, vox, payload, frd)
-    # float32 on both sides; the sums run in another order: 1e-4.
-    torch.testing.assert_close(sigma, s_ref, rtol=1e-4, atol=1e-4)
-    torch.testing.assert_close(feat, f_ref, rtol=1e-4, atol=1e-4)
+    if dtype == torch.float32:
+        # float32 on both sides; the sums run in another order: 1e-4.
+        torch.testing.assert_close(sigma, s_ref, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(feat, f_ref, rtol=1e-4, atol=1e-4)
+    else:
+        # bf16 rounded at the same points, summed in another order: chip_smoke.BF16_ATOL.
+        assert float((sigma - s_ref).abs().max()) <= 0.03
+        assert float((feat.float() - f_ref.float()).abs().max()) <= 0.03
 
 
 @torch.no_grad()

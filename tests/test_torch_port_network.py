@@ -7,7 +7,10 @@
 (b) Against the JAX Network at a small config (B=1, V=2, 64x64,
     num_depth (16, 8), S=3, adaptive) with JAX random weights (BatchNorm
     statistics randomized) carried over by state_dict_from_jax: rgb
-    PSNR >= 60 dB, mvs_depth and nerf_depth relative L1 <= 1e-4.
+    PSNR >= 60 dB, mvs_depth and nerf_depth relative L1 <= 1e-4.  Again
+    with the other eval configs' flags in one case: reweighting
+    (llff_eval, nerf_eval) with S = 6 (nerf_eval), V = 4, B = 2 and render
+    slabs of 256 bundles (nerf_chunk_size) at 64x96.
 Both run the plain PyTorch path on the CPU in float32.
 """
 
@@ -57,8 +60,11 @@ def test_port_matches_golden_render_at_dtu_eval_widths():
     np.testing.assert_allclose(ret["mvs_depth"].numpy(), g["golden/mvs_depth"], rtol=1e-2, atol=1e-2)
 
 
-def small_batch(rng, V=2, H=64, W=64):
-    """The JAX package's tests/test_models.py::make_synthetic_batch rig, numpy."""
+def small_batch(rng, V=2, H=64, W=64, B=1):
+    """The JAX package's tests/test_models.py::make_synthetic_batch rig,
+    numpy; with B > 1 each item's target camera moves 0.03 further, never
+    onto a source camera (there the ray-difference direction normalizes a
+    zero vector, and the two packages' roundings of it differ)."""
     K = np.array([[2.0 * W, 0, W / 2], [0, 2.0 * W, H / 2], [0, 0, 1]], np.float32)
 
     def cam(dx):
@@ -66,14 +72,16 @@ def small_batch(rng, V=2, H=64, W=64):
         ext[0, 3], ext[2, 3] = dx, 4.0
         return ext
 
+    src = np.stack([cam(-0.3 + 0.6 * v / max(V - 1, 1)) for v in range(V)])
     return {
         "src_views": {
-            "rgb": rng.uniform(0, 1, (1, V, H, W, 3)).astype(np.float32),
-            "extrinsics": np.stack([cam(-0.3 + 0.6 * v / max(V - 1, 1)) for v in range(V)])[None],
-            "intrinsics": np.stack([K] * V)[None],
+            "rgb": rng.uniform(0, 1, (B, V, H, W, 3)).astype(np.float32),
+            "extrinsics": np.stack([src] * B),
+            "intrinsics": np.stack([np.stack([K] * V)] * B),
         },
-        "tar_views": {"extrinsics": cam(0.05)[None], "intrinsics": K[None]},
-        "near_far": np.array([[2.5, 6.0]], np.float32),
+        "tar_views": {"extrinsics": np.stack([cam(0.05 + 0.03 * b) for b in range(B)]),
+                      "intrinsics": np.stack([K] * B)},
+        "near_far": np.array([[2.5, 6.0]] * B, np.float32),
     }
 
 
@@ -95,14 +103,14 @@ def rel_l1(a, b) -> float:
     return float(np.abs(a - b).sum() / np.abs(b).sum())
 
 
-@torch.no_grad()
-def test_port_matches_jax_network_small_config(rng):
+def assert_port_matches_jax_network(rng, batch, **kw):
+    """The JAX Network and the port on ``batch`` with the same random
+    weights (BatchNorm statistics randomized): rgb >= 60 dB, mvs_depth and
+    nerf_depth within 1e-4 relative L1."""
     flags = sorted(k for k in os.environ if k.startswith("GDBN_"))
     assert not flags, f"GDBN_* variables change the JAX reference: {flags}"
     from gdb_nerf_tpu.models.network import Network as JaxNetwork
 
-    kw = dict(mvs_num_depth=(16, 8), max_num_samples=3, is_adaptive=True, global_num_depth=64)
-    batch = small_batch(rng)
     jbatch = jax.tree_util.tree_map(jnp.asarray, batch)
     jnet = JaxNetwork(**kw)
     # Initialized with train=True so the tree holds the stage NeRF too.
@@ -121,6 +129,22 @@ def test_port_matches_jax_network_small_config(rng):
     for key in ("mvs_depth", "nerf_depth"):
         err = rel_l1(ret[key].numpy(), ret_j[key])
         assert err <= 1e-4, f"{key} relative L1 {err:.2e}"
+
+
+@torch.no_grad()
+def test_port_matches_jax_network_small_config(rng):
+    assert_port_matches_jax_network(
+        rng, small_batch(rng), mvs_num_depth=(16, 8), max_num_samples=3, is_adaptive=True,
+        global_num_depth=64)
+
+
+@torch.no_grad()
+def test_port_matches_jax_network_at_the_other_eval_flags(rng):
+    """Reweighting, S = 6, V = 4, B = 2 and slabs of 256 bundles, in one case."""
+    batch = small_batch(rng, V=4, H=64, W=96, B=2)
+    assert_port_matches_jax_network(
+        rng, batch, mvs_num_depth=(16, 8), max_num_samples=6, is_adaptive=True,
+        global_num_depth=64, reweighting=True, nerf_chunk_size=256)
 
 
 @torch.no_grad()

@@ -672,13 +672,13 @@ def test_ab_tool_imports_the_other_trees_wrappers(tmp_path):
     """The A/B tool imports another tree's plane_ops beside this one: that
     tree's source and build directory, this tree's modules left in place,
     and on CPU tensors that tree's plain versions."""
-    from gdb_nerf_tpu_torch.tools import ab_plane_ops
+    from gdb_nerf_tpu_torch.tools.ab_common import import_from_tree
 
     package = plane_ops.SOURCE.parents[1]
     shutil.copytree(package, tmp_path / package.name,
                     ignore=shutil.ignore_patterns("__pycache__", "*.so"))
     before = dict(sys.modules)
-    other = ab_plane_ops.import_plane_ops(tmp_path)
+    other = import_from_tree(tmp_path, "kernels.plane_ops")
     assert other is not plane_ops and sys.modules == before
     assert other.SOURCE == tmp_path / package.name / "csrc" / "plane_ops.cu"
     assert other.build_library.__globals__["BUILD_DIR"] == tmp_path / "build" / "kernels"
