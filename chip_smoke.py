@@ -11,16 +11,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      at the dtu_eval head shapes (N = 245,760 samples, V = 3; V = 2; a
      ragged N), in float32 and bf16, with both times and the bound, after
      a check that ptxas spilled nothing in the kernel's build;
-  2b. the conv microbench path (gdb_nerf_tpu_torch/tools/microbench_conv.py)
+  2b. after a check that ptxas spilled nothing in plane_conv.cu's build, the
+     conv microbench path (gdb_nerf_tpu_torch/tools/microbench_conv.py)
      driven in-process, with the plane-conv kernels' launch counts set to 0
      before it and read after: its check (float32 and bf16, against cuDNN)
      and its two benches (a chain of 4 C8 3x3 convs and fpnprim, 512x640
      bf16); then conv1, convchain and fpnprim each against its plain
      version in float32 and bf16 at the full size (C8, 512x640), at the
-     check's own shapes and inputs, and at a ragged shape, with the
-     kernel's, the plain version's and cuDNN's times and the bound at the
+     check's own shapes and inputs, and at a ragged shape (convchain also
+     at c = 12 and with float32 weights that are not bf16 values, where the
+     kernel must be nearer the plain version on those weights than on the
+     weights rounded to bf16), with the kernel's, the plain version's and cuDNN's times and the bound at the
      full size;
-  2c. the gather microbench paths (gdb_nerf_tpu_torch/tools/microbench_gather.py
+  2c. after a check that ptxas spilled nothing in gather.cu's build, the
+     gather microbench paths (gdb_nerf_tpu_torch/tools/microbench_gather.py
      and microbench_rowgather.py) driven in-process, with the gather kernels'
      launch counts set to 0 before them and read after: each tool's check
      (float32 and bf16, against PyTorch's gathers) and bench (bf16); then
@@ -224,6 +228,13 @@ def spilled_bytes(build_log: str) -> int:
                re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", build_log))
 
 
+def assert_no_spill(source: str, build_log: str) -> None:
+    """Fails if ptxas reports any spill (or no report) in ``source``'s build."""
+    spill = spilled_bytes(build_log)
+    if spill or "spill" not in build_log:
+        raise AssertionError(f"{source}: ptxas reports {spill} bytes of spill (or no report)")
+
+
 def phase_kernel_vs_plain(kernel, heads):
     """K1 against bundle_head_reference on the card, each dtype with its own
     head (``heads[dtype]``), after a check that ptxas spilled nothing in
@@ -234,9 +245,7 @@ def phase_kernel_vs_plain(kernel, heads):
     from gdb_nerf_tpu_torch.kernels.bundle_head import bundle_head_reference, work
     from gdb_nerf_tpu_torch.kernels.measure import bound_ms, timed_ms
 
-    spill = spilled_bytes(kernel.build_log)
-    if spill or "spill" not in kernel.build_log:
-        raise AssertionError(f"bundle_head: ptxas reports {spill} bytes of spill (or no report)")
+    assert_no_spill("bundle_head.cu", kernel.build_log)
     print("[k1] ptxas: no spill in either instantiation")
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = torch.device("cuda")
@@ -289,12 +298,16 @@ def phase_kernel_vs_plain(kernel, heads):
 # (timed), the microbench check's own shape and inputs (microbench_conv.check
 # and check_prims: C8, 32x256 or 64x256, seed 0), then a ragged shape (H and
 # W not multiples of the tiles, channels not a multiple of the groups of 8,
-# conv1 with c_in != c_out).
+# conv1 with c_in != c_out); for convchain also float32 weights that are not
+# bf16 values (the bf16 kernel's lo MMAs) and c = 12 (two groups of 8: two
+# n8 tiles on the tensor cores).  The full size takes the first row of each
+# dtype's tile table, the check shape the 16x32 one.
 CONV_CASES = {
     "conv1": [dict(c=8, H=512, W=640), dict(c=8, H=32, W=256),
               dict(c=5, c_out=12, H=509, W=637)],
     "convchain": [dict(c=8, n=4, H=512, W=640), dict(c=8, n=3, H=32, W=256),
-                  dict(c=6, n=3, H=509, W=637)],
+                  dict(c=6, n=3, H=509, W=637), dict(c=8, n=4, H=509, W=637, float32_params=True),
+                  dict(c=12, n=4, H=512, W=640), dict(c=12, n=3, H=509, W=637, float32_params=True)],
     "fpnprim": [dict(c=8, H=512, W=640, scale=0.1), dict(c=8, H=64, W=256, scale=0.1),
                 dict(c=5, H=510, W=634, scale=0.1)],
 }
@@ -318,6 +331,8 @@ def phase_plane_conv(kernels):
     from gdb_nerf_tpu_torch.runtime.renderer import set_float32_numerics
     from gdb_nerf_tpu_torch.tools import microbench_conv as mb
 
+    assert_no_spill("plane_conv.cu", kernels.build_log)
+    print("[conv] ptxas: no spill in plane_conv.cu")
     set_float32_numerics(tf32=False)
     kernels.launches = dict.fromkeys(KERNELS, 0)
     for dtype in (torch.float32, torch.bfloat16):
@@ -339,6 +354,11 @@ def phase_plane_conv(kernels):
                 torch.cuda.synchronize()
                 err, ok = mb.agree(got, plain(*args), CONV_F32_ATOL, CONV_F32_RTOL)
                 line = f"[conv] {name} {shape} {str(dtype)[6:]}: max|err| vs plain {err:.3e}"
+                if shape.get("float32_params"):
+                    full, rounded, kept = mb.weight_rounding_errors(got, args)
+                    line += (f" mean|err| vs plain {full:.3e}, vs plain on bf16-rounded weights "
+                             f"{rounded:.3e}")
+                    ok &= kept
                 if i == 0:
                     dev = torch.device("cuda")
                     r = mb.compare(kernels, name, args, dev)
@@ -391,6 +411,8 @@ def phase_gather(kernels):
 
     tools = {"take": microbench_gather, "take_along": microbench_gather,
              "row_loop": microbench_rowgather, "dma_ring": microbench_rowgather}
+    assert_no_spill("gather.cu", kernels.build_log)
+    print("[gather] ptxas: no spill in gather.cu")
     dev = torch.device("cuda")
     kernels.launches = dict.fromkeys(KERNELS, 0)
     for tool in (microbench_gather, microbench_rowgather):

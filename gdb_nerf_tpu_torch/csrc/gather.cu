@@ -29,9 +29,21 @@
 //              stores it, so a warp's stores cover 512 contiguous bytes.
 //              Rows whose width (or the pointers) are not a multiple of 16
 //              bytes take 8-, 4- or 2-byte pieces.
-//   take_along one thread per output element reads its own index and its
-//              element: the per-element gather the probe was written to
-//              expose, kept as such (C index loads per row).
+//   take_along the same function as the probe's element gather, redesigned
+//              to read each row's index once: a warp walks chunks of 32
+//              output rows.  Lane l loads the index of row l of the chunk
+//              (one coalesced 128-byte load) and clamps it; the chunk's 32 P
+//              pieces of U then go in P rounds of 32 contiguous pieces, so
+//              each round's stores cover 32 x 16 = 512 contiguous bytes.
+//              Piece t = 32 j + lane of the chunk is piece t % P of row
+//              t / P, whose index comes from lane t / P by __shfl_sync; the
+//              lane's (row, piece) advances by (32 / P, 32 % P) a round, so
+//              the per-piece loop holds no division and no 64-bit arithmetic
+//              but the address's wide multiply of 32-bit operands.  Loads go
+//              through the read-only path (ld.global.nc), stores are
+//              evict-first (st.global.cs) so that the output stream does not
+//              push the table out of L2.  Rows or pointers that are not
+//              16-byte multiples take 8-, 4- or 2-byte pieces, as take does.
 //   row_loop   each warp walks the rows of its block's tile one at a time:
 //              it reads the row's index once (one broadcast load for the
 //              warp) and copies the row with its lanes in 16-byte pieces (a
@@ -65,7 +77,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;      // take and take_along: threads per block
+constexpr int kThreads = 256;      // take: threads per block
+constexpr int kAlongWarps = 8;     // take_along: warps per block, a chunk of 32 rows each
 constexpr int kMaxBlocks = 1 << 20;  // grid cap; the kernels stride over the rest
 constexpr int kLoopWarps = 8;      // row_loop: warps per block
 constexpr int kLoopTile = 256;     // row_loop: rows per block
@@ -103,17 +116,33 @@ take_kernel(const U* __restrict__ table, const int* __restrict__ idx, U* __restr
   }
 }
 
-// take_along: element e of the output is element e % C of row idx[e / C].
-template <typename E>
-__global__ void __launch_bounds__(kThreads)
-take_along_kernel(const E* __restrict__ table, const int* __restrict__ idx, E* __restrict__ out,
-                  int rows, int C, long long total) {
-  for (long long e = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x; e < total;
-       e += static_cast<long long>(gridDim.x) * kThreads) {
-    const long long i = e / C;
-    const int c = static_cast<int>(e - i * C);
-    const int r = clamp_row(__ldg(idx + i), rows);
-    out[e] = __ldg(table + static_cast<long long>(r) * C + c);
+// take_along: warp w of block b takes chunks b * kAlongWarps + w + k *
+// gridDim.x * kAlongWarps of 32 rows; P pieces of type U a row.
+template <typename U>
+__global__ void __launch_bounds__(kAlongWarps * 32)
+take_along_kernel(const U* __restrict__ table, const int* __restrict__ idx, U* __restrict__ out,
+                  int rows, int P, int N) {
+  const int lane = threadIdx.x & 31;
+  const int chunks = N / 32 + (N % 32 != 0);
+  const int row0 = lane / P, piece0 = lane % P;  // this lane's piece of round 0
+  const int row_step = 32 / P, piece_step = 32 % P;
+  for (int ch = blockIdx.x * kAlongWarps + (threadIdx.x >> 5); ch < chunks;
+       ch += gridDim.x * kAlongWarps) {
+    const int base = ch * 32, n = min(32, N - base), pieces = n * P;
+    const int r = lane < n ? clamp_row(__ldg(idx + base + lane), rows) : 0;
+    U* dst = out + static_cast<long long>(base) * P;
+    int row = row0, piece = piece0;
+    for (int t = lane; t - lane < pieces; t += 32) {
+      const unsigned src = static_cast<unsigned>(__shfl_sync(0xffffffffu, r, row));
+      const unsigned long long at = static_cast<unsigned long long>(src) * static_cast<unsigned>(P);
+      if (t < pieces) __stcs(dst + t, __ldg(table + at + piece));
+      row += row_step;
+      piece += piece_step;
+      if (piece >= P) {
+        piece -= P;
+        ++row;
+      }
+    }
   }
 }
 
@@ -225,6 +254,15 @@ cudaError_t launch_take(const void* table, const int* idx, void* out, int rows, 
 }
 
 template <typename U>
+cudaError_t launch_take_along(const void* table, const int* idx, void* out, int rows,
+                              long long row_bytes, int N, cudaStream_t s) {
+  const int P = static_cast<int>(row_bytes / sizeof(U));
+  take_along_kernel<U><<<grid_for(N / 32 + (N % 32 != 0), kAlongWarps), kAlongWarps * 32, 0, s>>>(
+      static_cast<const U*>(table), idx, static_cast<U*>(out), rows, P, N);
+  return cudaGetLastError();
+}
+
+template <typename U>
 cudaError_t launch_row_loop(const void* table, const int* idx, void* out, int rows,
                             long long row_bytes, int N, cudaStream_t s) {
   const int P = static_cast<int>(row_bytes / sizeof(U));
@@ -238,7 +276,8 @@ bool bad_sizes(int rows, int C, int N) { return rows < 1 || C < 1 || N < 1; }
 }  // namespace
 
 // Each entry point returns a cudaError_t: cudaErrorInvalidValue for sizes it
-// does not take (rows, C or N below 1; for dma_ring a row that is not a
+// does not take (rows, C or N below 1; for take_along a row of 64 MB or
+// more; for dma_ring a row that is not a
 // multiple of 16 bytes, a table that is not 16-byte aligned, or a ring that
 // does not fit in a block's shared memory).
 
@@ -259,19 +298,16 @@ extern "C" int gather_take(const void* table, const void* idx, void* out, int ro
 extern "C" int gather_take_along(const void* table, const void* idx, void* out, int rows, int C,
                                  int N, int is_bf16, void* stream) {
   if (bad_sizes(rows, C, N)) return cudaErrorInvalidValue;
+  const long long row_bytes = static_cast<long long>(C) * (is_bf16 ? 2 : 4);
+  if (row_bytes >= (1LL << 26)) return cudaErrorInvalidValue;  // a chunk's pieces fit an int
   const int* ix = static_cast<const int*>(idx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long total = static_cast<long long>(N) * C;
-  const int grid = grid_for(total, kThreads);
-  if (is_bf16)
-    take_along_kernel<unsigned short><<<grid, kThreads, 0, s>>>(
-        static_cast<const unsigned short*>(table), ix, static_cast<unsigned short*>(out), rows, C,
-        total);
-  else
-    take_along_kernel<unsigned int><<<grid, kThreads, 0, s>>>(
-        static_cast<const unsigned int*>(table), ix, static_cast<unsigned int*>(out), rows, C,
-        total);
-  return cudaGetLastError();
+  switch (piece_bytes(table, out, row_bytes)) {
+    case 16: return launch_take_along<uint4>(table, ix, out, rows, row_bytes, N, s);
+    case 8: return launch_take_along<uint2>(table, ix, out, rows, row_bytes, N, s);
+    case 4: return launch_take_along<unsigned int>(table, ix, out, rows, row_bytes, N, s);
+    default: return launch_take_along<unsigned short>(table, ix, out, rows, row_bytes, N, s);
+  }
 }
 
 extern "C" int gather_row_loop(const void* table, const void* idx, void* out, int rows, int C,

@@ -5,8 +5,9 @@ Replace the Pallas kernels of the two TPU gather probes:
 * ``take``       <- ``tools/microbench_pallas_gather.py::pallas_take``:
   a row gather, ``jnp.take(table, idx, axis=0)``;
 * ``take_along`` <- ``…::pallas_taa``: the same function as
-  ``take_along_axis`` over the index broadcast to ``(N, C)``, one index
-  read per element;
+  ``take_along_axis`` over the index broadcast to ``(N, C)`` (one index per
+  element on the TPU); the kernel reads each row's index once, a warp's
+  lanes loading 32 rows' indices together and sharing them by shuffles;
 * ``row_loop``   <- ``tools/microbench_pallas_rowgather.py::pallas_vmem_loop``:
   a scalar-indexed loop of row copies;
 * ``dma_ring``   <- ``…::pallas_dma_ring``: a ring of 8 in-flight one-row

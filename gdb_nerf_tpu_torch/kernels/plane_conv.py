@@ -16,7 +16,11 @@ of shifted planes times scalar weights, accumulated in float32.  At the
 FPN's widths (c = 8) the convs are bound by device memory; the kernels
 (``csrc/plane_conv.cu``) load each tile with its halo into shared memory
 once and keep sums in registers, and the chain keeps its intermediates in
-shared memory (see the source's note).
+shared memory (see the source's note): in bf16 on the tensor cores
+(``mma.sync``, the float32 weights split into two bf16 parts), in float32
+on register tiles of FMAs.  The kernel picks the chain's tile; a shape
+for which not even the smallest tile fits a block's shared memory
+(``convchain_fits``; and bf16 with c > 16) is refused with ``ValueError``.
 
 ``PlaneConvKernels`` holds the three wrappers and their launch counts: on
 CPU tensors a wrapper runs the plain version; on CUDA tensors it builds the
@@ -35,6 +39,39 @@ from gdb_nerf_tpu_torch.kernels.build import CSRC, build_library
 SOURCE = CSRC / "plane_conv.cu"
 KERNELS = ("conv1", "convchain", "fpnprim")
 _DTYPES = (torch.float32, torch.bfloat16)
+
+# convchain's smallest tile (rows, cols), the last row of both tile tables
+# of csrc/plane_conv.cu.  The kernel picks each launch's row (pick_tile);
+# the wrapper only refuses what no row fits, i.e. what this one does not.
+# Constants of the source (kMaxSmem, kSteps, kF32Px, kMaxGroups), which
+# tests/test_torch_port_plane_conv.py holds equal to these.
+CHAIN_MIN_TILE = (16, 32)
+MAX_SMEM = 232_448
+_STEPS, _F32_PX, _BF16_MAX_GROUPS = 5, 5, 2
+
+
+def _groups(c: int) -> int:
+    return -(-c // 8)
+
+
+def convchain_smem(c: int, n: int, dtype: torch.dtype, tile=CHAIN_MIN_TILE) -> int:
+    """Bytes of shared memory a convchain block takes at ``tile``: bf16, two
+    channel-last frames (16 bytes a pixel and group of 8 channels) and two
+    layers' B fragments (hi and lo parts) and bias; float32, two layers'
+    weights and bias and two planar frames at an odd row pitch, each with a
+    thread's window of slack."""
+    G, R, C = _groups(c), tile[0] + 2 * n, tile[1] + 2 * n
+    if dtype == torch.bfloat16:
+        return 2 * G * R * C * 16 + 2 * (2 * G * G * _STEPS * 32 * 8 + G * 8 * 4)
+    return (2 * G * 8 * (9 * c + 1) + 2 * (c * R * (C | 1) + _F32_PX)) * 4
+
+
+def convchain_fits(c: int, n: int, dtype: torch.dtype) -> bool:
+    """Whether the chain kernel takes c channels and n layers in ``dtype``:
+    its smallest tile fits a block's shared memory, and bf16 has c <= 16."""
+    if dtype == torch.bfloat16 and _groups(c) > _BF16_MAX_GROUPS:
+        return False
+    return convchain_smem(c, n, dtype) <= MAX_SMEM
 
 
 def _conv3x3_planes(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -156,6 +193,9 @@ def _convchain_launch(x, ws, bs):
     H, W = x.shape[1] - 2, x.shape[2] - 2
     if H < 1 or W < 1:
         raise ValueError(f"convchain: x {tuple(x.shape)} holds no pixel inside its padding")
+    if not convchain_fits(c, n, x.dtype):
+        raise ValueError(f"convchain: c={c}, n={n} in {x.dtype} does not fit a block's shared "
+                         f"memory even at a {CHAIN_MIN_TILE} tile (bf16 takes c <= 16)")
     return [(c, H, W)], (c, H, W, n)
 
 

@@ -48,13 +48,15 @@ def bf16_tol(want: torch.Tensor) -> float:
 
 
 def inputs(name: str, c: int, H: int, W: int, dtype: torch.dtype, device, seed: int = 0,
-           n: int = 4, c_out: int | None = None, scale: float = 0.2):
+           n: int = 4, c_out: int | None = None, scale: float = 0.2,
+           float32_params: bool = False):
     """Pre-padded planes, weights and bias for kernel ``name`` from a seed:
     x (c, H+pad, W+pad) ~ N(0, 1) with a zero ring, weights ~ N(0, scale),
     bias ~ N(0, 1) (convchain: N(0, 0.1)), all rounded to ``dtype`` as the
-    JAX tool makes them.  x is in ``dtype``; weights and bias are handed over
-    in float32, the type the kernels read, so that a timed call holds no
-    cast."""
+    JAX tool makes them (with ``float32_params``, weights and bias stay
+    float32: bf16 planes then get weights that are not bf16 values).  x is in
+    ``dtype``; weights and bias are handed over in float32, the type the
+    kernels read, so that a timed call holds no cast."""
     g = torch.Generator().manual_seed(seed)
     pad = 2 if name == "fpnprim" else 1
     x = F.pad(torch.randn(c, H, W, generator=g), (pad,) * 4)
@@ -66,7 +68,8 @@ def inputs(name: str, c: int, H: int, W: int, dtype: torch.dtype, device, seed: 
                   torch.randn(n, c, generator=g) * 0.1)
     else:
         params = (torch.randn(c, c, 5, 5, generator=g) * scale, torch.randn(c, generator=g))
-    return (x.to(dtype).to(device), *(t.to(dtype).float().to(device) for t in params))
+    pdt = torch.float32 if float32_params else dtype
+    return (x.to(dtype).to(device), *(t.to(pdt).float().to(device) for t in params))
 
 
 def library_fn(name: str, args):
@@ -112,6 +115,20 @@ def agree(got, want, atol: float, rtol: float = 0.0) -> tuple[float, bool]:
         else:
             ok &= float(d.max()) <= bf16_tol(r)
     return err, ok
+
+
+def weight_rounding_errors(got: torch.Tensor, args) -> tuple[float, float, bool]:
+    """For a chain ``got`` on float32 weights that are not bf16 values: the
+    mean |got - plain| against the plain version on those weights and on the
+    weights rounded to bf16 (biases kept), and whether the first is below a
+    quarter of the second.  A kernel that keeps the float32 weights (the bf16
+    chain's lo MMAs) is far nearer the first (the CPU replay: 1-2 % of the
+    second); one that rounds them equals the second but for the order of its
+    sums."""
+    x, ws, bs = args
+    full, rounded = (float((got.float() - convchain_reference(x, w, bs).float()).abs().mean())
+                     for w in (ws, ws.to(torch.bfloat16).float()))
+    return full, rounded, 4 * full < rounded
 
 
 def check(kernels: PlaneConvKernels, device, dtype=torch.float32) -> None:

@@ -12,9 +12,9 @@ versions.  The same numpy inputs, made from a seed, go through both, in bf16
 and float32, with in-range indices; a gather copies, so the two must be
 equal bit for bit.
 
-The CUDA kernels cannot run here; ``test_row_loop_schedule_replay`` and
-``test_dma_ring_schedule_replay`` replay their schedules in torch from the
-constants of ``csrc/gather.cu``.
+The CUDA kernels cannot run here; ``test_row_loop_schedule_replay``,
+``test_dma_ring_schedule_replay`` and ``test_take_along_lane_schedule_replay``
+replay their schedules in torch from the constants of ``csrc/gather.cu``.
 """
 
 import re
@@ -332,3 +332,66 @@ def test_dma_ring_schedule_replay(N):
         assert pending == [None] * depth and issued == consumed
     assert (writes == 1).all()
     assert torch.equal(out, gather.dma_ring_reference(table, idx))
+
+
+def _piece_bytes(row_bytes: int) -> int:
+    """gather.cu's piece_bytes for 16-byte aligned pointers: the widest of
+    16, 8, 4 and 2 bytes that divides the row."""
+    return next(b for b in (16, 8, 4, 2) if row_bytes % b == 0)
+
+
+@pytest.mark.parametrize("rows, C, N, dtype", [
+    (37, 16, 1000, torch.bfloat16),   # the probe's 32-byte rows: 2 pieces of 16 B
+    (37, 13, 77, torch.bfloat16),     # 26-byte rows: 13 pieces of 2 B
+    (37, 6, 33, torch.float32),       # 24-byte rows: 3 pieces of 8 B
+    (11, 128, 65, torch.float32),     # 512-byte rows: 32 pieces, a round a row
+    (11, 300, 40, torch.float32),     # 1200-byte rows: 75 pieces, more than a warp
+    (5, 16, 1, torch.bfloat16),       # N = 1
+])
+def test_take_along_lane_schedule_replay(rows, C, N, dtype):
+    """take_along's schedule, replayed with a torch table: warp w of block b
+    takes chunks b * kAlongWarps + w (+ the grid's warps) of 32 rows; lane l
+    loads and clamps the index of row l of its chunk once; the chunk's P
+    pieces a row go in rounds of 32 contiguous pieces, piece t = 32 j + lane
+    being piece t % P of row t / P, whose index the lane takes from lane
+    t / P (a shuffle: always a lane of the warp), with (row, piece) advanced
+    by (32 / P, 32 % P) and a carry.  Every output piece is written once and
+    the output equals the plain version bit for bit, out-of-range indices
+    clamped."""
+    warps = _cu_constants()["kAlongWarps"]
+    e = torch.empty((), dtype=dtype).element_size()
+    piece = _piece_bytes(C * e)
+    P = C * e // piece
+    g = torch.Generator().manual_seed(N + C)
+    table = torch.randn(rows, C, generator=g).to(dtype)
+    idx = torch.randint(-3, rows + 3, (N,), generator=g, dtype=torch.int32)
+    pieces_of = table.view(torch.uint8).reshape(rows, P, piece)
+    out = torch.zeros(N * P, piece, dtype=torch.uint8)
+    writes = torch.zeros(N * P, dtype=torch.int64)
+    chunks = N // 32 + (N % 32 != 0)
+    grid = -(-chunks // warps)
+    lane = torch.arange(32)
+    visited = []
+    for b in range(grid):
+        for w in range(warps):
+            for ch in range(b * warps + w, chunks, grid * warps):
+                visited.append(ch)
+                base, n = ch * 32, min(32, N - ch * 32)
+                r = torch.where(lane < n, idx[torch.clamp(base + lane, max=N - 1)].long(),
+                                torch.zeros((), dtype=torch.int64)).clamp(0, rows - 1)
+                row, pc = lane // P, lane % P
+                t = lane.clone()
+                while int(t[0]) < n * P:
+                    assert (row < 32).all()
+                    src = r[row]  # __shfl_sync(r, row)
+                    keep = t < n * P
+                    assert torch.equal(row[keep], t[keep] // P) and torch.equal(pc[keep], t[keep] % P)
+                    out[base * P + t[keep]] = pieces_of[src[keep], pc[keep]]
+                    writes[base * P + t[keep]] += 1
+                    row, pc = row + 32 // P, pc + 32 % P
+                    row, pc = torch.where(pc >= P, row + 1, row), torch.where(pc >= P, pc - P, pc)
+                    t = t + 32
+    assert sorted(visited) == list(range(chunks))
+    assert (writes == 1).all()
+    got = out.reshape(N, C * e).view(dtype).reshape(N, C)
+    assert torch.equal(got, gather.take_along_reference(table, idx))

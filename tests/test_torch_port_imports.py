@@ -10,8 +10,9 @@
   synthetic loader, bit for bit: the JAX package's and the port's own.
 * The kernel wrapper takes the plain path for CPU tensors, leaving its
   launch counter at 0, and never falls back for tensors off the CPU.
-* The K1 A/B tool (``tools/ab_bundle_head.py``) stops without a GPU and
-  imports an earlier tree's bundle head beside this one.
+* The A/B tools (``tools/ab_bundle_head.py`` for K1,
+  ``tools/ab_probe_kernels.py`` for K3 and K5b) stop without a GPU and
+  import an earlier tree's wrappers beside this one's.
 """
 
 import os
@@ -206,3 +207,49 @@ def test_ab_bundle_head_needs_a_gpu_and_imports_the_earlier_tree(tmp_path, monke
     head = heads[torch.float32]
     for got, want in zip(earlier.BundleHeadKernel()(head, *args), bundle_head_reference(head, *args)):
         assert torch.equal(got, want)
+
+
+def test_ab_probe_kernels_needs_a_gpu_and_imports_the_earlier_tree(tmp_path, monkeypatch):
+    """The K3/K5b A/B tool stops without a GPU; its turns give each version
+    two places, one early and one late; its chain tolerances are the
+    smoke's; its cases are the probes' bench sizes with their bounds; and
+    the earlier tree's plane_conv and gather, imported beside this one,
+    keep their own sources and run their plain versions on CPU tensors."""
+    import shutil
+
+    from gdb_nerf_tpu_torch.kernels import gather, plane_conv
+    from gdb_nerf_tpu_torch.tools import ab_probe_kernels
+    from gdb_nerf_tpu_torch.tools.ab_common import import_from_tree
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        ab_probe_kernels.main([REPO])
+    assert exc.value.code not in (None, 0)
+    order = ab_probe_kernels.ORDER
+    assert order == order[::-1]
+    assert sorted(order) == sorted(2 * ("plain", "library", "earlier", "this"))
+    assert (ab_probe_kernels.CONV_F32_ATOL, ab_probe_kernels.CONV_F32_RTOL) == \
+        (chip_smoke.CONV_F32_ATOL, chip_smoke.CONV_F32_RTOL)
+    cases = ab_probe_kernels.cases(torch.device("cpu"))
+    assert [(c.kernel, c.lib, c.exact) for c in cases] == [
+        ("convchain", "plane_conv", False), ("convchain", "plane_conv", False),
+        ("take_along", "gather", True)]
+    assert [c.args[0].dtype for c in cases] == [torch.float32, torch.bfloat16, torch.bfloat16]
+    assert [c.bound[1] for c in cases] == ["operations", "bytes", "bytes"]
+    assert round(cases[2].bound[0], 4) == 0.0113
+    package = plane_conv.SOURCE.parents[1]
+    shutil.copytree(package, tmp_path / package.name,
+                    ignore=shutil.ignore_patterns("__pycache__", "*.so"))
+    before = dict(sys.modules)
+    earlier_conv = import_from_tree(tmp_path, "kernels.plane_conv")
+    earlier_gather = import_from_tree(tmp_path, "kernels.gather")
+    assert sys.modules == before
+    assert earlier_conv is not plane_conv and earlier_gather is not gather
+    assert earlier_conv.SOURCE == tmp_path / package.name / "csrc" / "plane_conv.cu"
+    assert earlier_gather.SOURCE == tmp_path / package.name / "csrc" / "gather.cu"
+    small = ab_probe_kernels.microbench_conv.inputs("convchain", 3, 9, 11, torch.float32, "cpu", n=2)
+    assert torch.equal(earlier_conv.PlaneConvKernels().convchain(*small),
+                       plane_conv.convchain_reference(*small))
+    table, idx = cases[2].args
+    assert torch.equal(earlier_gather.GatherKernels().take_along(table[:50], idx[:300] % 50),
+                       gather.take_along_reference(table[:50], idx[:300] % 50))

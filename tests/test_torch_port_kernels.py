@@ -127,6 +127,8 @@ PLANE_CASES = [
     ("conv1", dict(c=8, H=3, W=5)),
     ("convchain", dict(c=6, n=3, H=37, W=45)),
     ("convchain", dict(c=8, n=4, H=5, W=7)),
+    ("convchain", dict(c=12, n=3, H=37, W=71)),
+    ("convchain", dict(c=5, n=2, H=37, W=71, float32_params=True)),
     ("fpnprim", dict(c=8, H=38, W=70, scale=0.1)),
     ("fpnprim", dict(c=3, H=4, W=6, scale=0.1)),
 ]
@@ -137,7 +139,9 @@ PLANE_CASES = [
 @torch.no_grad()
 def test_plane_conv_kernel_matches_plain_version(plane_kernels, name, shape, dtype):
     x, w, b = microbench_conv.inputs(name, dtype=dtype, device="cuda", **shape)
-    args = (x, w.to(dtype), b.to(dtype))  # the wrapper casts weights and bias to float32
+    # The wrapper casts weights and bias to float32; float32 ones that are
+    # not bf16 values take the bf16 chain's lo MMAs.
+    args = (x, w, b) if shape.get("float32_params") else (x, w.to(dtype), b.to(dtype))
     got = getattr(plane_kernels, name)(*args)
     torch.cuda.synchronize()
     assert plane_kernels.launches[name] == 1
@@ -146,6 +150,11 @@ def test_plane_conv_kernel_matches_plain_version(plane_kernels, name, shape, dty
     # bf16: a flipped rounding, within 4 ulps at the largest magnitude.
     err, ok = microbench_conv.agree(got, want, atol=1e-5, rtol=1e-4)
     assert ok, err
+    if shape.get("float32_params"):
+        # The kernel keeps the float32 weights: nearer the plain version on
+        # them than on the weights rounded to bf16.
+        full, rounded, kept = microbench_conv.weight_rounding_errors(got, args)
+        assert kept, (full, rounded)
 
 
 @torch.no_grad()
@@ -169,6 +178,24 @@ def test_plane_conv_wrappers_raise_on_what_the_kernels_do_not_take(plane_kernels
     with pytest.raises(ValueError):
         plane_kernels.convchain(x, ws[:, :, :3].contiguous(), bs)
     assert plane_kernels.launches == {"conv1": 0, "convchain": 0, "fpnprim": 0}
+
+
+@pytest.mark.parametrize("dtype, c, n, refused", [
+    (torch.float32, 24, 4, (25, 4)), (torch.float32, 16, 8, (16, 9)),
+    (torch.bfloat16, 16, 17, (16, 18)), (torch.bfloat16, 8, 30, (17, 1))])
+@torch.no_grad()
+def test_convchain_at_the_shared_memory_line(plane_kernels, dtype, c, n, refused):
+    """The largest shapes the wrapper lets through (plane_conv.convchain_fits)
+    launch and agree with the plain version; the next ones are refused
+    before the launch."""
+    x, ws, bs = microbench_conv.inputs("convchain", c, 21, 35, dtype, "cuda", n=n, scale=0.1)
+    err, ok = microbench_conv.agree(plane_kernels.convchain(x, ws, bs),
+                                    microbench_conv.REFERENCES["convchain"](x, ws, bs), 1e-5, 1e-4)
+    assert ok, err
+    x, ws, bs = microbench_conv.inputs("convchain", refused[0], 21, 35, dtype, "cuda", n=refused[1])
+    with pytest.raises(ValueError, match="shared memory"):
+        plane_kernels.convchain(x, ws, bs)
+    assert plane_kernels.launches["convchain"] == 1
 
 
 @pytest.fixture

@@ -12,9 +12,14 @@ another order by XLA; measured 1.2e-6).  bf16: both sides sum in float32 and
 round at the same places, so a difference is a flipped rounding: within 4
 bf16 ulps at the output's largest magnitude (measured 0).
 
-The CUDA kernel cannot run here; ``test_convchain_tile_replay`` replays its
-tiled algorithm (halo of n pixels recomputed per tile, intermediates zeroed
-outside the image) in torch with the tile sizes of ``csrc/plane_conv.cu``.
+The CUDA kernels cannot run here; ``test_convchain_tile_replay`` replays
+the chain's tiled algorithm (halo of n pixels recomputed per tile,
+intermediates zeroed outside the image, float32's strips of a thread's
+register tile) in torch with the tile tables of ``csrc/plane_conv.cu``, and
+``test_convchain_bf16_fragment_replay`` replays the bf16 kernel's tensor-core
+algorithm (ldmatrix lane addresses, B fragments of hi and lo weights,
+m16n8k16 steps over tap pairs and an m16n8k8 step for tap 9, the epilogue's
+rounding) from the same constants, on ragged planes with c = 5 and c = 12.
 """
 
 import importlib.util
@@ -139,36 +144,82 @@ def _cu_constant(name: str) -> int:
     return int(re.search(rf"\b{name} = (\d+)", text).group(1))
 
 
+def _cu_tiles(name: str) -> tuple[tuple[int, int, int], ...]:
+    """A tile table of csrc/plane_conv.cu:
+    ``constexpr Tile name[] = {{th, tw, threads}, ...};``."""
+    body = re.search(rf"constexpr Tile {name}\[\] = \{{(.*?)\}};", plane_conv.SOURCE.read_text())
+    return tuple(tuple(int(v) for v in row)
+                 for row in re.findall(r"\{(\d+), (\d+), (\d+)\}", body.group(1)))
+
+
+def _chain_inputs(c, n, h, w, dtype, seed, bf16_weights=True):
+    """A ragged plane (c, h+2, w+2) in ``dtype`` with its zero ring, weights
+    ~ N(0, 0.3) (rounded to bf16 unless ``bf16_weights`` is False) and
+    biases near +0.3, so that intermediates are positive next to the image."""
+    g = torch.Generator().manual_seed(seed)
+    x = F.pad(torch.randn(c, h, w, generator=g), (1,) * 4).to(dtype)
+    ws = torch.randn(n, c, c, 3, 3, generator=g) * 0.3
+    bs = torch.randn(n, c, generator=g) * 0.1 + 0.3
+    if bf16_weights:
+        ws, bs = ws.to(torch.bfloat16).float(), bs.to(torch.bfloat16).float()
+    return x, ws, bs
+
+
+def _load_frame(x, c, n, h, w, oy, ox, R, C_):
+    """The tile's frame (c, R, C_) as float32: frame row f is image row
+    oy - n + f, x's padded row oy - n + f + 1; zero outside x."""
+    frame = torch.zeros(c, R, C_)
+    r0, c0 = oy - n + 1, ox - n + 1
+    rs, cs = max(r0, 0), max(c0, 0)
+    re_, ce = min(r0 + R, h + 2), min(c0 + C_, w + 2)
+    frame[:, rs - r0:re_ - r0, cs - c0:ce - c0] = x[:, rs:re_, cs:ce].float()
+    return frame
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_convchain_tile_replay(dtype):
-    """The CUDA kernel's tiling, replayed in torch: each output tile of
-    kChainTH x kChainTW loads a frame with a halo of n pixels, every layer
-    computes a region one pixel smaller per side and zeroes the positions
-    outside the image, and the last writes the tile.  On a ragged plane
-    (tiles cut at the right and bottom edges, c not a multiple of 8) it must
-    equal the plain version."""
-    th, tw = _cu_constant("kChainTH"), _cu_constant("kChainTW")
-    g = torch.Generator().manual_seed(3)
+    """The CUDA kernels' tiling, replayed in torch: each output tile (the
+    first row of the dtype's tile table) loads a frame with a halo of n
+    pixels, every layer computes a region one pixel smaller per side and
+    zeroes the positions outside the image, and the last writes the tile.
+    On a ragged plane (tiles cut at the right and bottom edges, c not a
+    multiple of 8) it must equal the plain version.  float32 also replays
+    the strips of kF32Px pixels that a thread takes: rows fastest, every
+    region pixel written once, windows within the frame and its slack, and
+    an odd row pitch."""
+    th, tw, _ = _cu_tiles("kBf16Tiles" if dtype == torch.bfloat16 else "kF32Tiles")[0]
     c, n, h, w = 5, 3, th + 5, 2 * tw + 7
-    x = F.pad(torch.randn(c, h, w, generator=g), (1,) * 4).to(dtype)
-    ws = (torch.randn(n, c, c, 3, 3, generator=g) * 0.3).to(dtype)
-    bs = (torch.randn(n, c, generator=g) * 0.1 + 0.3).to(dtype)
+    x, ws, bs = _chain_inputs(c, n, h, w, dtype, 3, bf16_weights=dtype == torch.bfloat16)
+    ws, bs = ws.to(dtype), bs.to(dtype)
     R, C_ = th + 2 * n, tw + 2 * n
+    px, S = _cu_constant("kF32Px"), C_ | 1
+    assert S % 2 == 1 and S >= C_
     out = torch.full((c, h, w), float("nan"))
     for oy in range(0, h, th):
         for ox in range(0, w, tw):
-            # frame row f is image row oy - n + f, x's padded row oy - n + f + 1
-            frame = torch.zeros(c, R, C_)
-            r0, c0 = oy - n + 1, ox - n + 1
-            rs, cs = max(r0, 0), max(c0, 0)
-            re_, ce = min(r0 + R, h + 2), min(c0 + C_, w + 2)
-            frame[:, rs - r0:re_ - r0, cs - c0:ce - c0] = x[:, rs:re_, cs:ce].float()
+            frame = _load_frame(x, c, n, h, w, oy, ox, R, C_)
             for k in range(n):
                 region = plane_conv._conv3x3_planes(frame[:, k:R - k, k:C_ - k], ws[k].float())
                 region = torch.relu(region + bs[k].float()[:, None, None])
                 iy = torch.arange(oy - n + k + 1, oy - n + R - k - 1)[:, None]
                 ix = torch.arange(ox - n + k + 1, ox - n + C_ - k - 1)[None]
                 inside = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+                if dtype == torch.float32:
+                    rr, rc, end = R - 2 * (k + 1), C_ - 2 * (k + 1), C_ - k - 1
+                    items = torch.arange(rr * -(-rc // px))
+                    strip = items // rr
+                    fr, fc = k + 1 + items - strip * rr, k + 1 + strip * px
+                    writes = torch.zeros(R, C_, dtype=torch.int64)
+                    for p in range(px):
+                        keep = fc + p < end
+                        writes.index_put_((fr[keep], fc[keep] + p), torch.ones(()).long(),
+                                          accumulate=True)
+                    assert (writes[k + 1:R - k - 1, k + 1:end] == 1).all()
+                    assert writes.sum() == rr * rc
+                    # The last window read (channel c - 1, row fr + 1, up to
+                    # column fc + px) stays inside the frame and its slack.
+                    last_read = ((c - 1) * R + fr + 1) * S + fc + px
+                    assert int(last_read.max()) < c * R * S + px
                 if k == n - 1:
                     assert region.shape[1:] == (th, tw)
                     hh, ww = min(th, h - oy), min(tw, w - ox)
@@ -183,6 +234,239 @@ def test_convchain_tile_replay(dtype):
         torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-4)
     else:
         assert (out - want).abs().max() <= microbench_conv.bf16_tol(want)
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
+def _stage_fragments(ws: torch.Tensor, c: int, steps: int):
+    """The bf16 kernel's staging of B fragments: entry i of the
+    [layer][nt][cg][step][lane] table holds, for lane (g, t), the weights of
+    output channel nt * 8 + g at (tap 2s, ci 2t and 2t + 1) and (tap 2s + 1,
+    the same ci), ci counted from cg * 8, zero past c and for tap 9; as
+    hi = bf16(w) and lo = bf16(w - hi).  Returns hi and lo as float32
+    (n, G, G, steps, 32, 4)."""
+    n, G = ws.shape[0], -(-c // 8)
+    i = torch.arange(n * G * G * steps * 32)
+    lane, s, rest = i & 31, (i >> 5) % steps, (i >> 5) // steps
+    cg, nt, k = rest % G, (rest // G) % G, rest // (G * G)
+    co, ci = nt * 8 + (lane >> 2), cg * 8 + 2 * (lane & 3)
+    wf = ws.reshape(n, c, c, 9).float()
+    v = torch.zeros(i.shape[0], 4)
+    for e in range(4):
+        tap, cc = 2 * s + (e >> 1), ci + (e & 1)
+        ok = (co < c) & (cc < c) & (tap < 9)
+        v[:, e] = torch.where(ok, wf[k, co.clamp(max=c - 1), cc.clamp(max=c - 1), tap.clamp(max=8)],
+                              torch.zeros(()))
+    hi = _bf16(v)
+    lo = _bf16(v - hi)
+    shape = (n, G, G, steps, 32, 4)
+    return hi.reshape(shape), lo.reshape(shape)
+
+
+def _b_matrix(frag: torch.Tensor) -> torch.Tensor:
+    """The mma's B operand (16 x 8, k x n) from 32 lanes' fragments (32, 4):
+    lane (g, t) holds b0 = (B[2t][g], B[2t + 1][g]) and b1 = (B[2t + 8][g],
+    B[2t + 9][g])."""
+    lane = torch.arange(32)
+    g, t = lane >> 2, lane & 3
+    B = torch.zeros(16, 8)
+    for e, row in enumerate((2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9)):
+        B[row, g] = frag[:, e]
+    return B
+
+
+def _a_matrix(rows8: torch.Tensor) -> torch.Tensor:
+    """The mma's A operand from one ldmatrix: rows8 (M tiles, lanes, 8) are
+    the 16-byte rows whose addresses the lanes gave; matrix j is lanes
+    8j .. 8j + 7.  x4 (32 lanes): a0 = matrix 0 (rows 0-7, k 0-7), a1 =
+    matrix 1 (rows 8-15), a2 = matrix 2 (rows 0-7, k 8-15), a3 = matrix 3;
+    x2 (16 lanes): a 16 x 8 operand from matrices 0 and 1."""
+    m = rows8.reshape(rows8.shape[0], -1, 8, 8)
+    if m.shape[1] == 2:
+        return torch.cat([m[:, 0], m[:, 1]], dim=1)
+    return torch.cat([torch.cat([m[:, 0], m[:, 2]], dim=2), torch.cat([m[:, 1], m[:, 3]], dim=2)],
+                     dim=1)
+
+
+def _bf16_kernel_replay(x, ws, bs, use_lo=None):
+    """convchain_bf16_kernel, replayed tile by tile in torch from the
+    constants of csrc/plane_conv.cu: frames of 8-channel rows, M tiles of 16
+    region pixels in row-major order (the tail repeating the last pixel),
+    per channel group kSteps K steps (m16n8k16 on tap pairs, m16n8k8 on tap
+    8) with hi and lo B fragments per n8 tile, float32 sums in two chains
+    (even and odd steps, each lo MMA in the other chain), and the
+    epilogue: bias and ReLU in float32, zero outside the image, one rounding
+    to bf16, stored at accumulator row g or g + 8's region pixel.  ``use_lo`` overrides
+    the kernel's per-layer flag (any lo fragment of the layer nonzero).
+    Returns (output, the layers' flags)."""
+    steps = _cu_constant("kSteps")
+    th, tw, _ = _cu_tiles("kBf16Tiles")[0]
+    n, c = ws.shape[:2]
+    h, w = x.shape[1] - 2, x.shape[2] - 2
+    G = -(-c // 8)
+    assert G <= _cu_constant("kMaxGroups")
+    hi, lo = _stage_fragments(ws, c, steps)
+    has_lo = [bool((lo[k] != 0).any()) if use_lo is None else use_lo for k in range(n)]
+    Bs = {(part, k, nt, cg, s): _b_matrix(f[k, nt, cg, s])
+          for part, f in (("hi", hi), ("lo", lo))
+          for k in range(n) for nt in range(G) for cg in range(G) for s in range(steps)}
+    bias = torch.zeros(n, G * 8)
+    bias[:, :c] = bs.float()
+    R, C_ = th + 2 * n, tw + 2 * n
+    lane = torch.arange(32)
+    taps = [2 * s + (lane >> 4) if s < steps - 1 else torch.full((32,), 8) for s in range(steps)]
+    out = torch.full((c, h, w), float("nan"))
+    for oy in range(0, h, th):
+        for ox in range(0, w, tw):
+            frame = torch.zeros(G * 8, R, C_)
+            frame[:c] = _load_frame(x, c, n, h, w, oy, ox, R, C_)
+            frame = frame.reshape(G, 8, R * C_).transpose(1, 2)  # [cg][pixel][8]
+            for k in range(n):
+                rr, rc = R - 2 * (k + 1), C_ - 2 * (k + 1)
+                npx = rr * rc
+                m = torch.arange(-(-npx // 16))[:, None]
+                p = torch.clamp(m * 16 + (lane & 15), max=npx - 1)  # (M tiles, lanes)
+                fr, fc = k + 1 + p // rc, k + 1 + p % rc
+                pix = fr * C_ + fc
+                # Two chains a tile: step s's hi MMA into chain s & 1, its lo
+                # MMA into the other; summed before the bias.
+                acc = torch.zeros(G, 2, m.shape[0], 16, 8)
+                for cg in range(G):
+                    for s in range(steps):
+                        tap = taps[s]
+                        addr = pix + (tap // 3 - 1) * C_ + tap % 3 - 1
+                        rows8 = frame[cg][addr]  # (M tiles, lanes, 8)
+                        a = _a_matrix(rows8 if s < steps - 1 else rows8[:, :16])
+                        for nt in range(G):
+                            for part in ("hi", "lo") if has_lo[k] else ("hi",):
+                                chain = (s + (part == "lo")) & 1
+                                b = Bs[(part, k, nt, cg, s)][:a.shape[2]]
+                                acc[nt, chain] = acc[nt, chain] + a @ b
+                acc = acc[:, 0] + acc[:, 1]
+                # Row r of an M tile is region pixel m * 16 + r: the pixel
+                # whose row address lane r gave ldmatrix.
+                qpix = pix[:, :16].reshape(-1)
+                y, xx = oy - n + fr[:, :16].reshape(-1), ox - n + fc[:, :16].reshape(-1)
+                keep = (m * 16 + torch.arange(16)).reshape(-1) < npx
+                inside = (y >= 0) & (y < h) & (xx >= 0) & (xx < w)
+                dst = torch.zeros(G, R * C_, 8)
+                for nt in range(G):
+                    v = torch.relu(acc[nt].reshape(-1, 8) + bias[k, nt * 8:nt * 8 + 8])
+                    if k < n - 1:
+                        v = torch.where(inside[:, None], v, torch.zeros(()))
+                    dst[nt, qpix[keep]] = _bf16(v[keep])
+                frame = dst
+            planes = frame.transpose(1, 2).reshape(G * 8, R, C_)
+            hh, ww = min(th, h - oy), min(tw, w - ox)
+            out[:, oy:oy + hh, ox:ox + ww] = planes[:c, n:n + hh, n:n + ww]
+    assert not out.isnan().any()
+    return out, has_lo
+
+
+@pytest.mark.parametrize("bf16_weights", [True, False], ids=["bf16-weights", "float32-weights"])
+@pytest.mark.parametrize("c", [5, 12])
+def test_convchain_bf16_fragment_replay(c, bf16_weights):
+    """The bf16 chain kernel's tensor-core algorithm, replayed in torch on a
+    ragged plane (2 x 2 tiles cut at the edges; c = 5 pads the channels to
+    8, c = 12 takes two channel groups and two n8 tiles), held to
+    ``convchain_reference`` within bf16_tol.  The hi/lo split: weights that
+    are bf16 values give lo = 0 everywhere and the kernel's per-layer flag
+    skips the lo MMAs (exact); float32 weights set it, hi + lo is within
+    2**-16 of w,
+    and fewer outputs differ from the plain version with lo than without."""
+    th, tw, _ = _cu_tiles("kBf16Tiles")[0]
+    n, h, w = 3, th + 5, tw + 7
+    x, ws, bs = _chain_inputs(c, n, h, w, torch.bfloat16, 10 + c, bf16_weights)
+    want = convchain_reference(x, ws, bs).float()
+    got, has_lo = _bf16_kernel_replay(x, ws, bs)
+    assert has_lo == [not bf16_weights] * n
+    assert (got - want).abs().max() <= microbench_conv.bf16_tol(want)
+    share = float((got != want).float().mean())
+    print(f"c={c} {'bf16' if bf16_weights else 'float32'} weights: {100 * share:.2f} % of the "
+          f"outputs differ from the plain version (by at most "
+          f"{float((got - want).abs().max()):.3e})")
+    if bf16_weights:
+        assert not _stage_fragments(ws, c, _cu_constant("kSteps"))[1].any()
+        return
+    # Each weight as hi + lo: |w - (hi + lo)| <= 2**-16 |w|.
+    full = ws.reshape(ws.shape[0], c, c, 9)
+    err = (full - (_bf16(full) + _bf16(full - _bf16(full)))).abs()
+    assert (err <= 2.0**-16 * full.abs()).all()
+    hi_only, _ = _bf16_kernel_replay(x, ws, bs, use_lo=False)
+    share_hi = float((hi_only != want).float().mean())
+    print(f"  without the lo MMAs: {100 * share_hi:.2f} %")
+    assert share < share_hi
+
+
+def _pick_tile(tiles, c, n, dtype, H, W, sms=132):
+    """The kernel's pick_tile, replayed: among the rows whose shared memory
+    fits a block, the least ceil(blocks / sms) x the pixel-layers a block
+    computes (every layer's region, the halo included)."""
+    def cost(t):
+        blocks = -(-H // t[0]) * -(-W // t[1])
+        return -(-blocks // sms) * sum((t[0] + 2 * (n - k - 1)) * (t[1] + 2 * (n - k - 1))
+                                       for k in range(n))
+    fit = [t for t in tiles if plane_conv.convchain_smem(c, n, dtype, t) <= plane_conv.MAX_SMEM]
+    return min(fit, key=cost, default=None)
+
+
+def test_convchain_tables_and_the_shape_line():
+    """csrc/plane_conv.cu's tile tables and sizes against the wrapper's
+    constants, and the wrapper's line between the shapes it launches and
+    those it refuses (``ValueError`` before the launch): float32 takes
+    every c and n that the chain took before these tables (a 16 x 32 tile,
+    float32 frames and every layer's weights in shared memory: up to c = 20
+    at n = 4) and more (c = 24 at n = 4: two layers' weights staged at a
+    time); bf16 every c <= 16 among them but the chains of 31 or more
+    layers at c <= 3 (a pixel of the frame holds 8 channels) and no c > 16.
+    Each table has two rows, the smallest last (the one the wrapper's
+    check reads), and the microbench's shapes take both: the bench (C8
+    512x640, n = 4, 132 SMs) the first (float32 40 x 64, 130 blocks, one a
+    SM; bf16 32 x 40), the check (C8 32x256, n = 3) the 16 x 32 one."""
+    tables = {torch.bfloat16: _cu_tiles("kBf16Tiles"), torch.float32: _cu_tiles("kF32Tiles")}
+    assert _cu_constant("kMaxSmem") == plane_conv.MAX_SMEM
+    assert (_cu_constant("kSteps"), _cu_constant("kF32Px"), _cu_constant("kMaxGroups")) == \
+        (plane_conv._STEPS, plane_conv._F32_PX, plane_conv._BF16_MAX_GROUPS)
+    assert _cu_constant("kChainThreads") == 256 and \
+        all(t[2] == 256 for t in tables[torch.bfloat16])
+    assert max(t[2] for t in tables[torch.float32]) == _cu_constant("kF32MaxThreads")
+    for dt, rows in tables.items():
+        assert len(rows) == 2 and rows[-1][:2] == plane_conv.CHAIN_MIN_TILE
+        assert all(t[0] >= rows[-1][0] and t[1] >= rows[-1][1] for t in rows)
+        assert _pick_tile(rows, 8, 4, dt, 512, 640) == rows[0]
+        assert _pick_tile(rows, 8, 3, dt, 32, 256) == rows[-1]
+        # The wrapper's check is the kernel's: some row fits (bf16 c <= 16).
+        for c, n in ((8, 4), (16, 17), (24, 4), (4, 40), (17, 1)):
+            assert plane_conv.convchain_fits(c, n, dt) == (
+                _pick_tile(rows, c, n, dt, 64, 64) is not None
+                and not (dt == torch.bfloat16 and c > 16)), (dt, c, n)
+    assert _pick_tile(tables[torch.float32], 8, 4, torch.float32, 512, 640) == (40, 64, 640)
+    assert -(-512 // 40) * -(-640 // 64) == 130
+
+    def earlier_fits(c, n):  # the earlier kernel: 16 x 32 tiles, float32 frames
+        G = -(-c // 8)
+        return (2 * c * (16 + 2 * n) * (32 + 2 * n) + n * G * 8 * (9 * c + 1)) * 4 <= 232_448
+
+    fits = plane_conv.convchain_fits
+    missed = []
+    for c in range(1, 25):
+        for n in range(1, 80):
+            if earlier_fits(c, n):
+                assert fits(c, n, torch.float32), (c, n)
+                if c <= 16 and not fits(c, n, torch.bfloat16):
+                    missed.append((c, n))
+            assert not (c > 16 and fits(c, n, torch.bfloat16))
+    assert {c for c, _ in missed} == {1, 2, 3} and min(n for _, n in missed) == 31
+    line = {dt: max(c for c in range(1, 40) if fits(c, 4, dt)) for dt in tables}
+    assert line == {torch.float32: 24, torch.bfloat16: 16}
+    for dt, c, n in ((torch.float32, 25, 4), (torch.bfloat16, 17, 1), (torch.float32, 16, 9)):
+        assert not fits(c, n, dt)
+        x = torch.empty(c, 10, 12, dtype=dt, device="meta")
+        ws, bs = torch.empty(n, c, c, 3, 3, device="meta"), torch.empty(n, c, device="meta")
+        with pytest.raises(ValueError, match="shared memory"):
+            plane_conv._convchain_launch(x, ws, bs)
 
 
 def test_wrappers_take_plain_path_on_cpu_only():
