@@ -18,11 +18,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      and its two benches (a chain of 4 C8 3x3 convs and fpnprim, 512x640
      bf16); then conv1, convchain and fpnprim each against its plain
      version in float32 and bf16 at the full size (C8, 512x640), at the
-     check's own shapes and inputs, and at a ragged shape (convchain also
-     at c = 12 and with float32 weights that are not bf16 values, where the
-     kernel must be nearer the plain version on those weights than on the
-     weights rounded to bf16), with the kernel's, the plain version's and cuDNN's times and the bound at the
-     full size;
+     check's own shapes and inputs, and at a ragged shape (each also with
+     12 channels and with float32 weights that are not bf16 values, where
+     the kernel must be nearer the plain version on those weights than on
+     the weights rounded to bf16), with the kernel's, the plain version's
+     and cuDNN's times and the bound at the full size;
   2c. after a check that ptxas spilled nothing in gather.cu's build, the
      gather microbench paths (gdb_nerf_tpu_torch/tools/microbench_gather.py
      and microbench_rowgather.py) driven in-process, with the gather kernels'
@@ -298,18 +298,22 @@ def phase_kernel_vs_plain(kernel, heads):
 # (timed), the microbench check's own shape and inputs (microbench_conv.check
 # and check_prims: C8, 32x256 or 64x256, seed 0), then a ragged shape (H and
 # W not multiples of the tiles, channels not a multiple of the groups of 8,
-# conv1 with c_in != c_out); for convchain also float32 weights that are not
-# bf16 values (the bf16 kernel's lo MMAs) and c = 12 (two groups of 8: two
-# n8 tiles on the tensor cores).  The full size takes the first row of each
-# dtype's tile table, the check shape the 16x32 one.
+# conv1 with c_in != c_out, fpnprim's o1 of odd width); for each kernel
+# also float32 weights that are not bf16 values (the bf16 kernels' lo MMAs)
+# and 12 channels (two groups of 8: two n8 tiles on the tensor cores; conv1
+# 12 -> 5, fpnprim at 512x640).  The chain's full size takes the first row of
+# each dtype's tile table, the check shape the 16x32 one.
 CONV_CASES = {
     "conv1": [dict(c=8, H=512, W=640), dict(c=8, H=32, W=256),
-              dict(c=5, c_out=12, H=509, W=637)],
+              dict(c=5, c_out=12, H=509, W=637),
+              dict(c=12, c_out=5, H=509, W=637, float32_params=True)],
     "convchain": [dict(c=8, n=4, H=512, W=640), dict(c=8, n=3, H=32, W=256),
                   dict(c=6, n=3, H=509, W=637), dict(c=8, n=4, H=509, W=637, float32_params=True),
                   dict(c=12, n=4, H=512, W=640), dict(c=12, n=3, H=509, W=637, float32_params=True)],
     "fpnprim": [dict(c=8, H=512, W=640, scale=0.1), dict(c=8, H=64, W=256, scale=0.1),
-                dict(c=5, H=510, W=634, scale=0.1)],
+                dict(c=5, H=510, W=634, scale=0.1),
+                dict(c=5, H=510, W=634, scale=0.1, float32_params=True),
+                dict(c=12, H=512, W=640, scale=0.1)],
 }
 
 
@@ -355,7 +359,7 @@ def phase_plane_conv(kernels):
                 err, ok = mb.agree(got, plain(*args), CONV_F32_ATOL, CONV_F32_RTOL)
                 line = f"[conv] {name} {shape} {str(dtype)[6:]}: max|err| vs plain {err:.3e}"
                 if shape.get("float32_params"):
-                    full, rounded, kept = mb.weight_rounding_errors(got, args)
+                    full, rounded, kept = mb.weight_rounding_errors(name, got, args)
                     line += (f" mean|err| vs plain {full:.3e}, vs plain on bf16-rounded weights "
                              f"{rounded:.3e}")
                     ok &= kept

@@ -14,13 +14,17 @@ bias ``(c_out,)``; outputs are in ``x.dtype``.  Each plain version writes
 out the Pallas body's arithmetic (``_conv_body``, ``_conv_grouped``): a sum
 of shifted planes times scalar weights, accumulated in float32.  At the
 FPN's widths (c = 8) the convs are bound by device memory; the kernels
-(``csrc/plane_conv.cu``) load each tile with its halo into shared memory
-once and keep sums in registers, and the chain keeps its intermediates in
-shared memory (see the source's note): in bf16 on the tensor cores
-(``mma.sync``, the float32 weights split into two bf16 parts), in float32
-on register tiles of FMAs.  The kernel picks the chain's tile; a shape
-for which not even the smallest tile fits a block's shared memory
-(``convchain_fits``; and bf16 with c > 16) is refused with ``ValueError``.
+(``csrc/plane_conv.cu``, see the source's note) load each tile with its
+halo into shared memory once and keep sums in registers: in bf16 on the
+tensor cores (``mma.sync``, the float32 weights split into two bf16
+parts), in float32 on register tiles of FMAs.  The chain keeps its
+intermediates in shared memory and picks its tile per launch; conv1 (c_in
+-> c_out) and fpnprim share one single-pass kernel a dtype, which stages
+its output tile and writes it as 16-byte rows.  A shape whose tile does not
+fit a block's shared memory (``convchain_fits``, ``conv1_fits``,
+``fpnprim_fits``; bf16 with more than 16 channels a side) is refused with
+``ValueError``, and so is fpnprim's x off its 4-byte (bf16) or 8-byte
+(float32) alignment.
 
 ``PlaneConvKernels`` holds the three wrappers and their launch counts: on
 CPU tensors a wrapper runs the plain version; on CUDA tensors it builds the
@@ -43,9 +47,16 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # convchain's smallest tile (rows, cols), the last row of both tile tables
 # of csrc/plane_conv.cu.  The kernel picks each launch's row (pick_tile);
 # the wrapper only refuses what no row fits, i.e. what this one does not.
-# Constants of the source (kMaxSmem, kSteps, kF32Px, kMaxGroups), which
-# tests/test_torch_port_plane_conv.py holds equal to these.
+# The single-pass convs' (kernel size, stride, output tile) by dtype
+# (ConvBf16: Conv1Bf16, PrimBf16; ConvF32: Conv1F32, PrimF32; fpnprim's
+# tile is o1's).  Constants of the source (kMaxSmem, kSteps, kF32Px,
+# kMaxGroups), which tests/test_torch_port_plane_conv.py holds equal to
+# these.
 CHAIN_MIN_TILE = (16, 32)
+SINGLE_PASS = {
+    torch.bfloat16: {"conv1": (3, 1, (16, 80)), "fpnprim": (5, 2, (4, 80))},
+    torch.float32: {"conv1": (3, 1, (32, 40)), "fpnprim": (5, 2, (32, 20))},
+}
 MAX_SMEM = 232_448
 _STEPS, _F32_PX, _BF16_MAX_GROUPS = 5, 5, 2
 
@@ -72,6 +83,41 @@ def convchain_fits(c: int, n: int, dtype: torch.dtype) -> bool:
     if dtype == torch.bfloat16 and _groups(c) > _BF16_MAX_GROUPS:
         return False
     return convchain_smem(c, n, dtype) <= MAX_SMEM
+
+
+def single_pass_smem(name: str, c_in: int, c_out: int, dtype: torch.dtype) -> int:
+    """Bytes of shared memory a conv1 or fpnprim block takes: the frame of
+    the tile's rows and column pairs, the weights (bf16: B fragments, hi and
+    lo) and bias, and the output stage.  bf16: channel-last, 16 bytes a
+    pixel and group of 8 input channels, a stage of 8 planes an output
+    group with a pitch of th * tw + 8; float32: c_in planar planes (rows
+    stored by parity at stride 2) at a pitch of 2 mod 4 floats, and c_out
+    stage planes of th * tw."""
+    k, stride, (th, tw) = SINGLE_PASS[dtype][name]
+    rows, pairs = stride * (th - 1) + k, (stride * (tw - 1) + k + 1) // 2
+    GI, GO = _groups(c_in), _groups(c_out)
+    if dtype == torch.bfloat16:
+        steps = (k * k + 1) // 2
+        return (GI * rows * 2 * pairs * 16 + 2 * GI * GO * steps * 32 * 8 + GO * 8 * 4
+                + GO * 8 * (th * tw + 8) * 2)
+    rows = stride * -(-rows // stride)
+    return (c_in * rows * 2 * (pairs | 1) + GO * 8 * (k * k * c_in + 1) + c_out * th * tw) * 4
+
+
+def conv1_fits(c_in: int, c_out: int, dtype: torch.dtype) -> bool:
+    """Whether conv1 takes c_in -> c_out channels in ``dtype``: its block's
+    shared memory fits, and bf16 has at most 16 channels a side."""
+    if dtype == torch.bfloat16 and max(_groups(c_in), _groups(c_out)) > _BF16_MAX_GROUPS:
+        return False
+    return single_pass_smem("conv1", c_in, c_out, dtype) <= MAX_SMEM
+
+
+def fpnprim_fits(c: int, dtype: torch.dtype) -> bool:
+    """Whether the fpnprim kernel takes c channels in ``dtype``: its block's
+    shared memory fits, and bf16 has c <= 16."""
+    if dtype == torch.bfloat16 and _groups(c) > _BF16_MAX_GROUPS:
+        return False
+    return single_pass_smem("fpnprim", c, c, dtype) <= MAX_SMEM
 
 
 def _conv3x3_planes(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -181,6 +227,9 @@ def _conv1_launch(x, w, b):
     H, W = x.shape[1] - 2, x.shape[2] - 2
     if H < 1 or W < 1:
         raise ValueError(f"conv1: x {tuple(x.shape)} holds no pixel inside its padding")
+    if not conv1_fits(c_in, c_out, x.dtype):
+        raise ValueError(f"conv1: c_in={c_in}, c_out={c_out} in {x.dtype} does not fit a block's "
+                         f"shared memory (bf16 takes c <= 16 a side)")
     return [(c_out, H, W)], (c_in, c_out, H, W)
 
 
@@ -208,6 +257,13 @@ def _fpnprim_launch(x, w, b):
     H, W = x.shape[1] - 4, x.shape[2] - 4
     if H < 2 or W < 2 or H % 2 or W % 2:
         raise ValueError(f"fpnprim: H={H}, W={W} inside the padding must be even and >= 2")
+    if not fpnprim_fits(c, x.dtype):
+        raise ValueError(f"fpnprim: c={c} in {x.dtype} does not fit a block's shared memory "
+                         f"(bf16 takes c <= 16)")
+    align = 2 * x.element_size()  # a column pair: 4 bytes in bf16, 8 in float32
+    if x.data_ptr() % align:
+        raise ValueError(f"fpnprim: x must start on a {align}-byte boundary (its column pairs "
+                         f"are read whole)")
     return [(c, H // 2, W // 2), (c, H, W)], (c, H, W)
 
 

@@ -1,23 +1,28 @@
 """Probe kernels against an earlier tree's, on one card in one run: the
-plane-conv chain K3 (``csrc/plane_conv.cu``, convchain) in float32 and bf16
-and the element gather K5b (``csrc/gather.cu``, take_along).
+plane convs (``csrc/plane_conv.cu``) K2 (conv1), K3 (convchain) and K4
+(fpnprim) in float32 and bf16, and the element gather K5b
+(``csrc/gather.cu``, take_along).
 
 Each case runs four versions on the same inputs, made on the card from a
 seed: the plain version (``convchain_reference``, ``take_along_reference``),
-the library call (cuDNN's chain: ``microbench_conv.library_fn``;
+the library call (cuDNN: ``microbench_conv.library_fn``;
 ``torch.take_along_dim`` over the int64 index broadcast to (N, C)), the
 earlier tree's kernel through that tree's own wrappers (its package
 imported from OTHER beside this one, its libraries built into
 OTHER/build/kernels) and this tree's.  Each kernel must agree with the
-plain version (the chain: float32 within 1e-5 absolute and 1e-4 relative,
-bf16 within ``microbench_conv.bf16_tol``; the gather bit for bit); then
+plain version (the convs, fpnprim's two outputs each: float32 within 1e-5
+absolute and 1e-4 relative, bf16 within ``microbench_conv.bf16_tol``; the
+gather bit for bit); then
 ``measure.timed_ms`` times the four, ``ITERS`` calls a turn, in turns
 plain, library, earlier, this, this, earlier, library, plain.
 
-Cases: K3 at the conv probe's bench size (a chain of 4 C8 3x3 convs on
-512x640 planes), float32 and bf16; K5b at the gather probe's size (a bf16
-table (8192, 16), N = 1,048,576 indices (N, 1)).  Float32 convs run
-without TF32.
+Cases, each conv in float32 and bf16 at the FPN's first layer (C8,
+512x640 planes, the microbench's inputs): K3 at the conv probe's bench
+size (a chain of 4 3x3 convs); the chain at n = 1, the one conv that K2
+now launches the chain for (c -> c); K2 (one 3x3 conv + ReLU); K4 (the
+stride-2 5x5 conv and its masked upsample, weights ~ N(0, 0.1) as the
+microbench's); then K5b at the gather probe's size (a bf16 table (8192,
+16), N = 1,048,576 indices (N, 1)).  Float32 convs run without TF32.
 
     mkdir -p build/parent
     git archive <commit> gdb_nerf_tpu_torch | tar -x -C build/parent
@@ -69,14 +74,25 @@ class Case:
     exact: bool
 
 
+# (label, kernel, microbench_conv.inputs keywords) of the conv cases.
+CONV_CASES = (
+    ("K3 convchain", "convchain", dict(CHAIN)),
+    ("K3 convchain n=1", "convchain", dict(CHAIN, n=1)),
+    ("K2 conv1", "conv1", dict(c=8, H=512, W=640)),
+    ("K4 fpnprim", "fpnprim", dict(c=8, H=512, W=640, scale=0.1)),
+)
+
+
 def cases(device: torch.device) -> list[Case]:
     out = []
-    for dtype in (torch.float32, torch.bfloat16):
-        args = microbench_conv.inputs("convchain", dtype=dtype, device=device, **CHAIN)
-        out.append(Case(f"K3 convchain {str(dtype)[6:]} C8 512x640 n=4", "convchain", "plane_conv",
-                        args, plane_conv.convchain_reference,
-                        microbench_conv.library_fn("convchain", args),
-                        bound_ms(*plane_conv.work("convchain", args), dtype), exact=False))
+    for label, kernel, kw in CONV_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = microbench_conv.inputs(kernel, dtype=dtype, device=device, **kw)
+            n = f" n={kw['n']}" if kernel == "convchain" and "n=" not in label else ""
+            out.append(Case(f"{label} {str(dtype)[6:]} C8 512x640{n}", kernel, "plane_conv", args,
+                            microbench_conv.REFERENCES[kernel],
+                            microbench_conv.library_fn(kernel, args),
+                            bound_ms(*plane_conv.work(kernel, args), dtype), exact=False))
     p = microbench_gather.PROBE
     table, idx = microbench_gather.inputs(p.rows, p.C, p.N, torch.bfloat16, device, p.idx_2d)
     out.append(Case(f"K5b take_along bf16 table ({p.rows}, {p.C}) N={p.N}", "take_along", "gather",
@@ -90,7 +106,7 @@ def cases(device: torch.device) -> list[Case]:
 def agree(got, want, exact: bool) -> tuple[float, bool]:
     """Max abs error, and whether it is within the case's tolerance: equal
     bit for bit where ``exact``, else as ``microbench_conv.agree`` holds
-    the chain."""
+    the convs (every output of fpnprim)."""
     if exact:
         return float((got.float() - want.float()).abs().max()), torch.equal(got, want)
     return microbench_conv.agree(got, want, CONV_F32_ATOL, CONV_F32_RTOL)

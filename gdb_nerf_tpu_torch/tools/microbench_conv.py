@@ -117,17 +117,25 @@ def agree(got, want, atol: float, rtol: float = 0.0) -> tuple[float, bool]:
     return err, ok
 
 
-def weight_rounding_errors(got: torch.Tensor, args) -> tuple[float, float, bool]:
-    """For a chain ``got`` on float32 weights that are not bf16 values: the
-    mean |got - plain| against the plain version on those weights and on the
+def weight_rounding_errors(name: str, got, args) -> tuple[float, float, bool]:
+    """For kernel ``name``'s output ``got`` (a tensor, or fpnprim's two) on
+    float32 weights that are not bf16 values: the mean |got - plain| over
+    every output against the plain version on those weights and on the
     weights rounded to bf16 (biases kept), and whether the first is below a
-    quarter of the second.  A kernel that keeps the float32 weights (the bf16
-    chain's lo MMAs) is far nearer the first (the CPU replay: 1-2 % of the
-    second); one that rounds them equals the second but for the order of its
-    sums."""
-    x, ws, bs = args
-    full, rounded = (float((got.float() - convchain_reference(x, w, bs).float()).abs().mean())
-                     for w in (ws, ws.to(torch.bfloat16).float()))
+    quarter of the second.  A kernel that keeps the float32 weights (the
+    bf16 kernels' lo MMAs) is far nearer the first (the CPU replay of the
+    chain: 1-2 % of the second); one that rounds them equals the second but
+    for the order of its sums."""
+    x, w, b = args
+    got = got if isinstance(got, tuple) else (got,)
+
+    def mean_err(weights):
+        want = REFERENCES[name](x, weights, b)
+        want = want if isinstance(want, tuple) else (want,)
+        return float(torch.cat([(g.float() - r.float()).abs().reshape(-1)
+                                for g, r in zip(got, want, strict=True)]).mean())
+
+    full, rounded = mean_err(w), mean_err(w.to(torch.bfloat16).float())
     return full, rounded, 4 * full < rounded
 
 

@@ -11,7 +11,7 @@
 * The kernel wrapper takes the plain path for CPU tensors, leaving its
   launch counter at 0, and never falls back for tensors off the CPU.
 * The A/B tools (``tools/ab_bundle_head.py`` for K1,
-  ``tools/ab_probe_kernels.py`` for K3 and K5b) stop without a GPU and
+  ``tools/ab_probe_kernels.py`` for K2-K4 and K5b) stop without a GPU and
   import an earlier tree's wrappers beside this one's.
 """
 
@@ -210,7 +210,7 @@ def test_ab_bundle_head_needs_a_gpu_and_imports_the_earlier_tree(tmp_path, monke
 
 
 def test_ab_probe_kernels_needs_a_gpu_and_imports_the_earlier_tree(tmp_path, monkeypatch):
-    """The K3/K5b A/B tool stops without a GPU; its turns give each version
+    """The K2-K4/K5b A/B tool stops without a GPU; its turns give each version
     two places, one early and one late; its chain tolerances are the
     smoke's; its cases are the probes' bench sizes with their bounds; and
     the earlier tree's plane_conv and gather, imported beside this one,
@@ -231,12 +231,13 @@ def test_ab_probe_kernels_needs_a_gpu_and_imports_the_earlier_tree(tmp_path, mon
     assert (ab_probe_kernels.CONV_F32_ATOL, ab_probe_kernels.CONV_F32_RTOL) == \
         (chip_smoke.CONV_F32_ATOL, chip_smoke.CONV_F32_RTOL)
     cases = ab_probe_kernels.cases(torch.device("cpu"))
+    convs = ("convchain",) * 4 + ("conv1",) * 2 + ("fpnprim",) * 2
     assert [(c.kernel, c.lib, c.exact) for c in cases] == [
-        ("convchain", "plane_conv", False), ("convchain", "plane_conv", False),
-        ("take_along", "gather", True)]
-    assert [c.args[0].dtype for c in cases] == [torch.float32, torch.bfloat16, torch.bfloat16]
-    assert [c.bound[1] for c in cases] == ["operations", "bytes", "bytes"]
-    assert round(cases[2].bound[0], 4) == 0.0113
+        *((k, "plane_conv", False) for k in convs), ("take_along", "gather", True)]
+    assert [c.args[0].dtype for c in cases] == [torch.float32, torch.bfloat16] * 4 + [torch.bfloat16]
+    assert [c.bound[1] for c in cases] == ["operations"] + ["bytes"] * 8
+    assert [c.args[1].shape[0] for c in cases[:4]] == [4, 4, 1, 1]  # the chain of 4, then n = 1
+    assert round(cases[-1].bound[0], 4) == 0.0113
     package = plane_conv.SOURCE.parents[1]
     shutil.copytree(package, tmp_path / package.name,
                     ignore=shutil.ignore_patterns("__pycache__", "*.so"))
@@ -250,6 +251,6 @@ def test_ab_probe_kernels_needs_a_gpu_and_imports_the_earlier_tree(tmp_path, mon
     small = ab_probe_kernels.microbench_conv.inputs("convchain", 3, 9, 11, torch.float32, "cpu", n=2)
     assert torch.equal(earlier_conv.PlaneConvKernels().convchain(*small),
                        plane_conv.convchain_reference(*small))
-    table, idx = cases[2].args
+    table, idx = cases[-1].args
     assert torch.equal(earlier_gather.GatherKernels().take_along(table[:50], idx[:300] % 50),
                        gather.take_along_reference(table[:50], idx[:300] % 50))

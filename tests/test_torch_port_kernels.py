@@ -121,16 +121,22 @@ def plane_kernels():
 
 # Ragged planes: H and W not multiples of the kernels' tiles, channel
 # counts not multiples of their groups of 8, c_in != c_out for conv1; and
-# one plane smaller than a tile.
+# one plane smaller than a tile.  conv1 and fpnprim also take two groups of
+# 8 (12 channels), float32 weights that are not bf16 values, and planes of
+# several tiles each way (conv1 float32: 32 x 40 tiles; fpnprim: o1 tiles
+# of 4 x 80 in bf16, 32 x 20 in float32) with an odd o1 width.
 PLANE_CASES = [
     ("conv1", dict(c=5, c_out=12, H=37, W=45)),
     ("conv1", dict(c=8, H=3, W=5)),
+    ("conv1", dict(c=12, c_out=5, H=70, W=83, float32_params=True)),
     ("convchain", dict(c=6, n=3, H=37, W=45)),
     ("convchain", dict(c=8, n=4, H=5, W=7)),
     ("convchain", dict(c=12, n=3, H=37, W=71)),
     ("convchain", dict(c=5, n=2, H=37, W=71, float32_params=True)),
     ("fpnprim", dict(c=8, H=38, W=70, scale=0.1)),
     ("fpnprim", dict(c=3, H=4, W=6, scale=0.1)),
+    ("fpnprim", dict(c=12, H=38, W=70, scale=0.1)),
+    ("fpnprim", dict(c=5, H=70, W=174, scale=0.1, float32_params=True)),
 ]
 
 
@@ -153,7 +159,7 @@ def test_plane_conv_kernel_matches_plain_version(plane_kernels, name, shape, dty
     if shape.get("float32_params"):
         # The kernel keeps the float32 weights: nearer the plain version on
         # them than on the weights rounded to bf16.
-        full, rounded, kept = microbench_conv.weight_rounding_errors(got, args)
+        full, rounded, kept = microbench_conv.weight_rounding_errors(name, got, args)
         assert kept, (full, rounded)
 
 
@@ -177,6 +183,22 @@ def test_plane_conv_wrappers_raise_on_what_the_kernels_do_not_take(plane_kernels
     x, ws, bs = microbench_conv.inputs("convchain", 4, 8, 8, torch.float32, "cuda", n=2)
     with pytest.raises(ValueError):
         plane_kernels.convchain(x, ws[:, :, :3].contiguous(), bs)
+    # The shape lines (tests/test_torch_port_plane_conv.py holds them to the
+    # source): bf16 at most 16 channels a side, float32 a block's shared
+    # memory; fpnprim's x on a column pair's boundary.
+    for dt, c_in, c_out in ((torch.bfloat16, 17, 8), (torch.float32, 20, 20)):
+        x, w, b = microbench_conv.inputs("conv1", c_in, 8, 8, dt, "cuda", c_out=c_out)
+        with pytest.raises(ValueError, match="shared memory"):
+            plane_kernels.conv1(x, w, b)
+    for dt, c in ((torch.bfloat16, 17), (torch.float32, 14)):
+        with pytest.raises(ValueError, match="shared memory"):
+            plane_kernels.fpnprim(*microbench_conv.inputs("fpnprim", c, 8, 8, dt, "cuda"))
+    for dt in (torch.bfloat16, torch.float32):
+        x, w, b = microbench_conv.inputs("fpnprim", 3, 8, 8, dt, "cuda")
+        shifted = torch.empty(x.numel() + 1, dtype=dt, device="cuda")[1:].view(x.shape)
+        shifted.copy_(x)
+        with pytest.raises(ValueError, match="boundary"):
+            plane_kernels.fpnprim(shifted, w, b)
     assert plane_kernels.launches == {"conv1": 0, "convchain": 0, "fpnprim": 0}
 
 

@@ -20,6 +20,14 @@ register tile) in torch with the tile tables of ``csrc/plane_conv.cu``, and
 algorithm (ldmatrix lane addresses, B fragments of hi and lo weights,
 m16n8k16 steps over tap pairs and an m16n8k8 step for tap 9, the epilogue's
 rounding) from the same constants, on ragged planes with c = 5 and c = 12.
+The single-pass kernels of conv1 and fpnprim are replayed the same way:
+``test_conv_bf16_fragment_replay`` (fpnprim's stride-2 column-parity frame
+and its 13 K steps, tap 24 on m16n8k8, hi and lo at c = 5 and 8; conv1 with
+c_in != c_out), ``test_conv_f32_replay`` (the float32 register tiles, their
+conflict-free float2 windows, the (ci, ky, kx) sums) and
+``test_fpnprim_store_pass_replay`` (16-byte pieces where whole and aligned,
+o2's masked rows, the odd-width tail); ``test_conv1_and_fpnprim_shape_lines``
+holds the wrapper's refusal lines to the source.
 """
 
 import importlib.util
@@ -240,28 +248,29 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).float()
 
 
-def _stage_fragments(ws: torch.Tensor, c: int, steps: int):
-    """The bf16 kernel's staging of B fragments: entry i of the
-    [layer][nt][cg][step][lane] table holds, for lane (g, t), the weights of
-    output channel nt * 8 + g at (tap 2s, ci 2t and 2t + 1) and (tap 2s + 1,
-    the same ci), ci counted from cg * 8, zero past c and for tap 9; as
-    hi = bf16(w) and lo = bf16(w - hi).  Returns hi and lo as float32
-    (n, G, G, steps, 32, 4)."""
-    n, G = ws.shape[0], -(-c // 8)
-    i = torch.arange(n * G * G * steps * 32)
+def _stage_fragments(ws: torch.Tensor, steps: int):
+    """The bf16 kernels' staging of B fragments (fetch_layer): ws (n, c_out,
+    c_in, k, k); entry i of the [layer][nt][cg][step][lane] table holds, for
+    lane (g, t), the weights of output channel nt * 8 + g at (tap 2s, ci 2t
+    and 2t + 1) and (tap 2s + 1, the same ci), ci counted from cg * 8, zero
+    past c_in, c_out and the k * k taps; as hi = bf16(w) and lo = bf16(w -
+    hi).  Returns hi and lo as float32 (n, GO, GI, steps, 32, 4)."""
+    n, c_out, c_in, k = ws.shape[:4]
+    taps, GI, GO = k * k, -(-c_in // 8), -(-c_out // 8)
+    i = torch.arange(n * GO * GI * steps * 32)
     lane, s, rest = i & 31, (i >> 5) % steps, (i >> 5) // steps
-    cg, nt, k = rest % G, (rest // G) % G, rest // (G * G)
+    cg, nt, layer = rest % GI, (rest // GI) % GO, rest // (GI * GO)
     co, ci = nt * 8 + (lane >> 2), cg * 8 + 2 * (lane & 3)
-    wf = ws.reshape(n, c, c, 9).float()
+    wf = ws.reshape(n, c_out, c_in, taps).float()
     v = torch.zeros(i.shape[0], 4)
     for e in range(4):
         tap, cc = 2 * s + (e >> 1), ci + (e & 1)
-        ok = (co < c) & (cc < c) & (tap < 9)
-        v[:, e] = torch.where(ok, wf[k, co.clamp(max=c - 1), cc.clamp(max=c - 1), tap.clamp(max=8)],
-                              torch.zeros(()))
+        ok = (co < c_out) & (cc < c_in) & (tap < taps)
+        v[:, e] = torch.where(ok, wf[layer, co.clamp(max=c_out - 1), cc.clamp(max=c_in - 1),
+                                     tap.clamp(max=taps - 1)], torch.zeros(()))
     hi = _bf16(v)
     lo = _bf16(v - hi)
-    shape = (n, G, G, steps, 32, 4)
+    shape = (n, GO, GI, steps, 32, 4)
     return hi.reshape(shape), lo.reshape(shape)
 
 
@@ -307,7 +316,7 @@ def _bf16_kernel_replay(x, ws, bs, use_lo=None):
     h, w = x.shape[1] - 2, x.shape[2] - 2
     G = -(-c // 8)
     assert G <= _cu_constant("kMaxGroups")
-    hi, lo = _stage_fragments(ws, c, steps)
+    hi, lo = _stage_fragments(ws, steps)
     has_lo = [bool((lo[k] != 0).any()) if use_lo is None else use_lo for k in range(n)]
     Bs = {(part, k, nt, cg, s): _b_matrix(f[k, nt, cg, s])
           for part, f in (("hi", hi), ("lo", lo))
@@ -388,7 +397,7 @@ def test_convchain_bf16_fragment_replay(c, bf16_weights):
           f"outputs differ from the plain version (by at most "
           f"{float((got - want).abs().max()):.3e})")
     if bf16_weights:
-        assert not _stage_fragments(ws, c, _cu_constant("kSteps"))[1].any()
+        assert not _stage_fragments(ws, _cu_constant("kSteps"))[1].any()
         return
     # Each weight as hi + lo: |w - (hi + lo)| <= 2**-16 |w|.
     full = ws.reshape(ws.shape[0], c, c, 9)
@@ -398,6 +407,338 @@ def test_convchain_bf16_fragment_replay(c, bf16_weights):
     share_hi = float((hi_only != want).float().mean())
     print(f"  without the lo MMAs: {100 * share_hi:.2f} %")
     assert share < share_hi
+
+
+def _store_prim_tile(stage, th, tw, es, H, W, oy, ox, o1, o2, writes):
+    """store_prim_tile replayed: o1's rows of the tile in pieces of 16 / es
+    values, o2's two rows per o1 row in pieces of 8 / es o1 values, each
+    twice, rows >= H - 3 zero; a piece is a 16-byte vector where it is whole
+    (within the tile's valid width) and its address (outputs 16-byte
+    aligned) is a multiple of 16, else stored value by value.  Counts every
+    element written in ``writes`` (o1's, o2's); returns (vector pieces,
+    value-by-value pieces)."""
+    c = o1.shape[0]
+    V1, V2 = 16 // es, 8 // es
+    Ho, Wo = H // 2, W // 2
+    nr, nc = min(th, Ho - oy), min(tw, Wo - ox)
+    counts = [0, 0]
+    for out, cnt, rows, V in ((o1, writes[0], th, V1), (o2, writes[1], 2 * th, V2)):
+        co, rr, k = (t.reshape(-1) for t in torch.meshgrid(
+            torch.arange(c), torch.arange(rows), torch.arange(tw // V), indexing="ij"))
+        col = k * V
+        if out is o1:
+            r, y, idx = rr, oy + rr, (co * Ho + oy + rr) * Wo + ox + col
+        else:
+            r = rr >> 1
+            y = 2 * (oy + r) + (rr & 1)
+            idx = (co * H + y) * W + 2 * (ox + col)
+        keep = (r < nr) & (col < nc)
+        vec = keep & (col + V <= nc) & (idx * es % 16 == 0)
+        counts[0] += int(vec.sum())
+        counts[1] += int((keep & ~vec).sum())
+        for e in range(V):
+            m = keep & (col + e < nc)
+            v = stage[co[m], r[m] * tw + col[m] + e]
+            if out is o1:
+                dst = [idx[m] + e]
+            else:
+                v = torch.where(y[m] >= H - 3, torch.zeros(()), v)
+                dst = [idx[m] + 2 * e, idx[m] + 2 * e + 1]
+            for d in dst:
+                out.view(-1)[d] = v
+                cnt.view(-1).index_add_(0, d, torch.ones(d.shape[0]))
+    return tuple(counts)
+
+
+def _cu_single_pass(name: str):
+    """The source's single-pass conv kind ``name``: ConvBf16's (K, STRIDE,
+    TH, TW, ReLU) for Conv1Bf16 and PrimBf16, ConvF32's (K, STRIDE, TH, TW,
+    CO, ReLU) with its kPx for Conv1F32 and PrimF32."""
+    text = plane_conv.SOURCE.read_text()
+    if name.endswith("Bf16"):
+        k, stride, th, tw, relu = re.search(
+            rf"using {name} = ConvBf16<(\d+), (\d+), (\d+), (\d+), (true|false)>;", text).groups()
+        return int(k), int(stride), int(th), int(tw), relu == "true"
+    k, stride, tw, co, relu = re.search(
+        rf"using {name} = ConvF32<(\d+), (\d+), (\d+), (\d+), (true|false)>;", text).groups()
+    th = int(re.search(r"STRIDE = STRIDE_, TH = (\d+)", text).group(1))
+    return int(k), int(stride), th, int(tw), int(co), relu == "true", _cu_constant("kPx")
+
+
+def _conv_bf16_replay(name, x, w, b, use_lo=None):
+    """conv_bf16_kernel (conv1 or fpnprim), replayed tile by tile in torch
+    from the constants of csrc/plane_conv.cu: the frame of x's padded rows
+    from STRIDE * oy and column pairs from STRIDE * ox as 8-channel rows
+    (zero past c_in and outside x), stride 2's columns stored by parity
+    (column 2q at pixel q, 2q + 1 at pixel CE + q); M tiles of 16 output
+    pixels in row-major order over the tile; per input group the K steps,
+    lane l's ldmatrix row at tap 2s + l / 16 (m16n8k16) and the last tap at
+    the last step (x2, m16n8k8), i.e. at frame row STRIDE pr + ky, pixel pc
+    + slot(kx); hi and lo B fragments in two chains; the epilogue (bias, and
+    conv1's ReLU, in float32, one rounding to bf16) into the stage, then
+    the store pass.  Returns (outputs, the lo flag, the store pass's
+    (vector, value-by-value) pieces)."""
+    K, stride, th, tw, relu = _cu_single_pass("Conv1Bf16" if name == "conv1" else "PrimBf16")
+    assert (K, stride, (th, tw)) == plane_conv.SINGLE_PASS[torch.bfloat16][name]
+    steps, taps = (K * K + 1) // 2, K * K
+    c_out, c_in = w.shape[:2]
+    GI, GO = -(-c_in // 8), -(-c_out // 8)
+    pad = (K - 1) // 2
+    Ho, Wo = (x.shape[1] - 2 * pad) // stride, (x.shape[2] - 2 * pad) // stride
+    fr, ce = stride * (th - 1) + K, (stride * (tw - 1) + K + 1) // 2
+
+    def slot(q):
+        return (q & 1) * ce + (q >> 1) if stride == 2 else q
+
+    hi, lo = _stage_fragments(w[None], steps)
+    has_lo = bool((lo != 0).any()) if use_lo is None else use_lo
+    Bs = {(part, nt, cg, s): _b_matrix(f[0, nt, cg, s]) for part, f in (("hi", hi), ("lo", lo))
+          for nt in range(GO) for cg in range(GI) for s in range(steps)}
+    bias = torch.zeros(GO * 8)
+    bias[:c_out] = b.float()
+    lane = torch.arange(32)
+    toff = []
+    for s in range(steps):
+        tap = 2 * s + (lane >> 4) if s < steps - 1 else torch.full((32,), taps - 1)
+        toff.append(tap // K * 2 * ce + slot(tap % K))
+    outs = (torch.full((c_out, Ho, Wo), float("nan")),) + (
+        (torch.full((c_out, 2 * Ho, 2 * Wo), float("nan")),) if name == "fpnprim" else ())
+    writes, pieces = tuple(torch.zeros(o.shape) for o in outs), [0, 0]
+    mt = th * tw // 16
+    p = torch.arange(mt)[:, None] * 16 + (lane & 15)
+    pix = stride * (p // tw) * 2 * ce + p % tw
+    for oy in range(0, Ho, th):
+        for ox in range(0, Wo, tw):
+            region = torch.zeros(GI * 8, fr, 2 * ce)
+            r1, c1 = min(stride * oy + fr, x.shape[1]), min(stride * ox + 2 * ce, x.shape[2])
+            region[:c_in, :r1 - stride * oy, :c1 - stride * ox] = \
+                x[:, stride * oy:r1, stride * ox:c1].float()
+            if stride == 2:
+                region = torch.cat([region[:, :, 0::2], region[:, :, 1::2]], dim=2)
+            frame = region.reshape(GI, 8, fr * 2 * ce).transpose(1, 2)  # [cg][pixel][8]
+            acc = torch.zeros(GO, 2, mt, 16, 8)
+            for cg in range(GI):
+                for s in range(steps):
+                    rows8 = frame[cg][pix + toff[s]]  # (M tiles, lanes, 8)
+                    a = _a_matrix(rows8 if s < steps - 1 else rows8[:, :16])
+                    for nt in range(GO):
+                        for part in ("hi", "lo") if has_lo else ("hi",):
+                            chain = (s + (part == "lo")) & 1
+                            acc[nt, chain] += a @ Bs[(part, nt, cg, s)][:a.shape[2]]
+            acc = (acc[:, 0] + acc[:, 1]).reshape(GO, th * tw, 8)
+            v = torch.cat([(acc[nt] + bias[nt * 8:nt * 8 + 8]).T for nt in range(GO)])
+            stage = _bf16(torch.relu(v) if relu else v)
+            if name == "conv1":
+                hh, ww = min(th, Ho - oy), min(tw, Wo - ox)
+                outs[0][:, oy:oy + hh, ox:ox + ww] = stage[:c_out].view(c_out, th, tw)[:, :hh, :ww]
+                writes[0][:, oy:oy + hh, ox:ox + ww] += 1
+            else:
+                for i, n in enumerate(_store_prim_tile(stage, th, tw, 2, 2 * Ho, 2 * Wo, oy, ox,
+                                                       *outs, writes)):
+                    pieces[i] += n
+    assert all((t == 1).all() for t in writes)
+    return outs, has_lo, pieces
+
+
+@pytest.mark.parametrize("name, c_in, c_out, bf16_weights", [
+    ("fpnprim", 5, 5, True), ("fpnprim", 5, 5, False), ("fpnprim", 8, 8, True),
+    ("fpnprim", 8, 8, False), ("conv1", 5, 12, False), ("conv1", 12, 5, False)])
+def test_conv_bf16_fragment_replay(name, c_in, c_out, bf16_weights):
+    """The bf16 single-pass kernel's tensor-core algorithm, replayed in
+    torch on a ragged plane (2 x 2 tiles cut at the edges, an odd output
+    width; c = 5 pads the channels to 8, 12 takes two groups), every output
+    held to the plain version within bf16_tol: fpnprim's stride-2 taps
+    through the column-parity frame and its K order (12 tap pairs on
+    m16n8k16, tap 24 on m16n8k8: 200 of 208 K slots), conv1's c_in != c_out
+    with its ReLU; and the hi/lo split (weights that are bf16 values skip
+    the lo MMAs exactly; float32 weights take them, and fewer outputs then
+    differ from the plain version than without)."""
+    K, stride, th, tw, _ = _cu_single_pass("Conv1Bf16" if name == "conv1" else "PrimBf16")
+    assert th * tw % 32 == 0 and tw % 8 == 0 and K * K % 2 == 1
+    if name == "fpnprim":
+        steps = (K * K + 1) // 2
+        assert 2 * (steps - 1) == 24 and 16 * (steps - 1) + 8 == 25 * 8 and 16 * steps == 208
+    g = torch.Generator().manual_seed(40 + c_in + 3 * c_out)
+    H, W = stride * (th + 3), stride * (tw + 7)
+    x = F.pad(torch.randn(c_in, H, W, generator=g), ((K - 1) // 2,) * 4).to(torch.bfloat16)
+    w = torch.randn(c_out, c_in, K, K, generator=g) * (0.1 if K == 5 else 0.3)
+    b = torch.randn(c_out, generator=g)
+    if bf16_weights:
+        w, b = _bf16(w), _bf16(b)
+    want = plane_conv.fpnprim_reference(x, w, b) if name == "fpnprim" else \
+        (conv1_reference(x, w, b),)
+    want = [t.float() for t in want]
+    outs, has_lo, _ = _conv_bf16_replay(name, x, w, b)
+    assert has_lo == (not bf16_weights)
+    for got, ref in zip(outs, want):
+        assert (got - ref).abs().max() <= microbench_conv.bf16_tol(ref)
+    if name == "fpnprim":
+        o1, o2 = outs
+        assert (o2[:, H - 3:] == 0).all() and torch.equal(o2[:, :H - 3:2, ::2], o1[:, :(H - 2) // 2])
+    if not bf16_weights:
+        without, _, _ = _conv_bf16_replay(name, x, w, b, use_lo=False)
+        assert (outs[0] != want[0]).float().mean() < (without[0] != want[0]).float().mean()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("W", [640, 634])
+def test_fpnprim_store_pass_replay(dtype, W):
+    """The fpnprim kernels' store pass from the source's tiles: at the
+    bench width (640) every piece is a 16-byte vector (bf16 8 o1 values or
+    4 o1 values twice; float32 4, or 2 twice); at the smoke's ragged width
+    (634: o1 317 wide, odd, rows not 16-byte aligned) the tail and the
+    misaligned rows go value by value (o2 a pair at a time); every element of o1 and o2 is
+    written once, o2 is o1 twice in both directions with rows >= H - 3
+    zero, exactly."""
+    th, tw = _cu_single_pass("PrimBf16" if dtype == torch.bfloat16 else "PrimF32")[2:4]
+    es = torch.empty((), dtype=dtype).element_size()
+    H = 2 * th + 6  # two tile rows, the second cut, with the masked rows in it
+    c = 3
+    g = torch.Generator().manual_seed(W)
+    y = torch.randn(c, H // 2, W // 2, generator=g).to(dtype).float()  # o1 as the kernel rounds it
+    o1 = torch.full(y.shape, float("nan"))
+    o2 = torch.full((c, H, W), float("nan"))
+    writes, pieces = (torch.zeros(o1.shape), torch.zeros(o2.shape)), [0, 0]
+    for oy in range(0, H // 2, th):
+        for ox in range(0, W // 2, tw):
+            stage = torch.zeros(c, th * tw)
+            tile = y[:, oy:oy + th, ox:ox + tw]
+            stage.view(c, th, tw)[:, :tile.shape[1], :tile.shape[2]] = tile
+            for i, n in enumerate(_store_prim_tile(stage, th, tw, es, H, W, oy, ox, o1, o2, writes)):
+                pieces[i] += n
+    assert all((t == 1).all() for t in writes)
+    up = y.repeat_interleave(2, 1).repeat_interleave(2, 2)
+    up[:, H - 3:] = 0
+    assert torch.equal(o1, y) and torch.equal(o2, up)
+    if W == 640:
+        assert pieces[1] == 0
+    else:
+        assert pieces[0] > 0 and pieces[1] > 0
+
+
+@pytest.mark.parametrize("name", ["conv1", "fpnprim"])
+def test_conv_f32_replay(name):
+    """The float32 conv1 / fpnprim kernel (conv_f32_kernel) from the
+    source's constants: a thread per (half of each group's channels, output
+    row, strip of kPx columns), a warp on the tile's 32 rows; the frame's
+    rows stored by parity at stride 2, at a pitch of 2 mod 4 floats over
+    its column pairs; each thread's float2 window reads stay in the loaded
+    columns and are conflict-free per half-warp; sums in (ci, ky, kx)
+    order, bias (and conv1's ReLU), then the store pass: within 1e-5 / 1e-4
+    of the plain version on a ragged plane (2 x 3 tiles, the last column
+    tile 3 wide; c_in != c_out for conv1, 12 channels: two groups)."""
+    K, stride, th, tw, CO, relu, P = _cu_single_pass("Conv1F32" if name == "conv1" else "PrimF32")
+    assert (K, stride, (th, tw)) == plane_conv.SINGLE_PASS[torch.float32][name] and th == 32
+    fr = stride * (th - 1) + K
+    rh = -(-fr // stride)
+    pairs = (stride * (tw - 1) + K + 1) // 2
+    S, win, halves = 2 * (pairs | 1), stride * (P - 1) + K, 8 // CO
+    assert S % 4 == 2 and S >= 2 * pairs >= stride * (tw - 1) + K
+    t = torch.arange(th * (tw // P) * halves)
+    half, rest = t // (th * (tw // P)), t % (th * (tw // P))
+    row, j0 = rest % th, rest // th * P
+    assert int((stride * j0 + win).max()) <= 2 * pairs and (stride * j0 % 2 == 0).all()
+
+    def stored(r, ky):  # stored row of frame row stride * r + ky
+        return (ky & 1) * rh + r + (ky >> 1) if stride == 2 else r + ky
+
+    for ky in range(K):
+        sr = stored(row, ky)
+        assert int(sr.max()) < stride * rh
+        for e in range(win // 2):
+            pair = (sr * S + stride * j0 + 2 * e) // 2  # float2 index
+            for hw in pair.reshape(-1, 16):
+                assert len(set((hw % 16).tolist())) == 16
+    c_in, c_out = (5, 12) if name == "conv1" else (12, 12)
+    pad = (K - 1) // 2
+    Ho, Wo = th + 5, 2 * tw + 3
+    H, W = stride * Ho, stride * Wo
+    g = torch.Generator().manual_seed(8)
+    x = F.pad(torch.randn(c_in, H, W, generator=g), (pad,) * 4)
+    w = torch.randn(c_out, c_in, K, K, generator=g) * 0.1
+    b = torch.randn(c_out, generator=g)
+    outs = (torch.full((c_out, Ho, Wo), float("nan")),) + (
+        (torch.full((c_out, H, W), float("nan")),) if name == "fpnprim" else ())
+    writes = tuple(torch.zeros(o.shape) for o in outs)
+    for oy in range(0, Ho, th):
+        for ox in range(0, Wo, tw):
+            frame = torch.zeros(c_in, stride * rh, S)
+            for f in range(fr):
+                r, q0 = stride * oy + f, stride * ox
+                if r < x.shape[1]:
+                    cols = x[:, r, q0:min(q0 + 2 * pairs, x.shape[2])]
+                    frame[:, stored(0, f) if stride == 1 else (f & 1) * rh + f // 2,
+                          :cols.shape[1]] = cols
+            stage = torch.zeros(c_out, th * tw)
+            cols = stride * j0[:, None] + torch.arange(win)
+            for gi in range(-(-c_out // 8)):
+                co = gi * 8 + half[:, None] * CO + torch.arange(CO)  # (threads, CO)
+                wt = F.pad(w, (0, 0, 0, 0, 0, 0, 0, 8))[co]  # zero past c_out
+                acc = torch.zeros(t.shape[0], P, CO)
+                for ci in range(c_in):
+                    for ky in range(K):
+                        vals = frame[ci, stored(row, ky)].gather(1, cols)
+                        for kx in range(K):
+                            acc += vals[:, stride * torch.arange(P) + kx, None] * \
+                                wt[:, None, :, ci, ky, kx]
+                v = acc + F.pad(b, (0, 8))[co][:, None]
+                v = torch.relu(v) if relu else v
+                keep = co < c_out
+                for p in range(P):
+                    idx = (row * tw + j0 + p)[:, None].expand(-1, CO)
+                    stage[co[keep], idx[keep]] = v[:, p][keep]
+            if name == "conv1":
+                o2 = torch.empty(0)
+                hh, ww = min(th, Ho - oy), min(tw, Wo - ox)
+                outs[0][:, oy:oy + hh, ox:ox + ww] = stage.view(c_out, th, tw)[:, :hh, :ww]
+                writes[0][:, oy:oy + hh, ox:ox + ww] += 1
+            else:
+                _store_prim_tile(stage, th, tw, 4, H, W, oy, ox, *outs, writes)
+    assert all((n == 1).all() for n in writes)
+    want = (plane_conv.conv1_reference(x, w, b),) if name == "conv1" else \
+        plane_conv.fpnprim_reference(x, w, b)
+    for got, ref in zip(outs, want):
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-4)
+
+
+def test_conv1_and_fpnprim_shape_lines():
+    """The source's single-pass kinds against the wrapper's, and the line
+    between the shapes conv1 and fpnprim launch and those they refuse with
+    ``ValueError`` before the launch: bf16 takes at most 16 channels a side
+    (two groups of 8); float32 whatever its block's shared memory fits
+    (conv1 c -> c up to 19, fpnprim up to 13: frame, weights and output
+    stage); and fpnprim's x must start on a column pair's boundary (4 bytes
+    bf16, 8 float32)."""
+    for dt, kinds in ((torch.bfloat16, ("Conv1Bf16", "PrimBf16")),
+                      (torch.float32, ("Conv1F32", "PrimF32"))):
+        for name, kind in zip(("conv1", "fpnprim"), kinds):
+            K, stride, th, tw = _cu_single_pass(kind)[:4]
+            assert plane_conv.SINGLE_PASS[dt][name] == (K, stride, (th, tw))
+    fits, pfits = plane_conv.conv1_fits, plane_conv.fpnprim_fits
+    assert fits(5, 12, torch.bfloat16) and fits(16, 16, torch.bfloat16)
+    assert not fits(17, 8, torch.bfloat16) and not fits(8, 17, torch.bfloat16)
+    assert max(c for c in range(1, 64) if fits(c, c, torch.float32)) == 19
+    assert fits(5, 12, torch.float32) and fits(12, 5, torch.float32)
+    assert max(c for c in range(1, 40) if pfits(c, torch.bfloat16)) == 16
+    assert max(c for c in range(1, 40) if pfits(c, torch.float32)) == 13
+    meta = {"device": "meta"}
+    for dt, c_in, c_out in ((torch.bfloat16, 17, 8), (torch.bfloat16, 4, 17), (torch.float32, 20, 20)):
+        x = torch.empty(c_in, 10, 12, dtype=dt, **meta)
+        w, b = torch.empty(c_out, c_in, 3, 3, **meta), torch.empty(c_out, **meta)
+        with pytest.raises(ValueError, match="shared memory"):
+            plane_conv._conv1_launch(x, w, b)
+    assert plane_conv._conv1_launch(torch.empty(19, 10, 12, **meta), torch.empty(19, 19, 3, 3, **meta),
+                                    torch.empty(19, **meta))[1] == (19, 19, 8, 10)
+    for dt, c in ((torch.bfloat16, 17), (torch.float32, 14)):
+        x = torch.empty(c, 12, 14, dtype=dt, **meta)
+        with pytest.raises(ValueError, match="shared memory"):
+            plane_conv._fpnprim_launch(x, torch.empty(c, c, 5, 5, **meta), torch.empty(c, **meta))
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.zeros(3 * 12 * 14 + 1, dtype=dt)[1:].view(3, 12, 14)
+        w, b = torch.zeros(3, 3, 5, 5), torch.zeros(3)
+        with pytest.raises(ValueError, match="boundary"):
+            plane_conv._fpnprim_launch(x, w, b)
+        assert plane_conv._fpnprim_launch(x.clone(), w, b)[1] == (3, 8, 10)
 
 
 def _pick_tile(tiles, c, n, dtype, H, W, sms=132):
