@@ -34,13 +34,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      bound, at ragged sizes (rows
      not a power of two, N not a multiple of any tile or of the ring, N = 1,
      rows narrower than 16 bytes where the kernel takes them) and in float32;
-  2d. the probe tool's path (gdb_nerf_tpu_torch/tools/probe_ops.py) driven
+  2d. after a check that ptxas spilled nothing in plane_ops.cu's build, the
+     probe tool's path (gdb_nerf_tpu_torch/tools/probe_ops.py) driven
      in-process, with the plane-primitive kernels' launch counts set to 0
      before it and read after: its check of the nine probes at their size
      (8, 64, 256); then each probe's kernel against its plain version at
      that size, at the FPN's plane size (C8, 512x640) and at a ragged size
      (C5, H and W odd and not multiples of any tile, 508x638 for the row
-     mask), equal bit for bit (the conv: within the conv tolerance), with
+     mask) and at the sizes of the conv's and the row mask's other paths
+     (probe_ops.PATH_SIZES), equal bit for bit (the conv: within the conv
+     tolerance), with
      PyTorch's own calls held to the plain version too (a 0/1 product in
      TF32 would differ), and the kernel's, the plain version's and the
      library calls' times, the bound, its share and the achieved TFLOP/s
@@ -467,11 +470,14 @@ PROBE_FULL = (8, 512, 640)  # the FPN's first-layer planes, where K2-K4 are time
 def probe_sizes(name):
     """(C, H, W) of one probe's comparisons: the probe's own size, the FPN's
     plane size (timed), then a ragged size (C5; H and W odd and not
-    multiples of any tile; H a multiple of 4 and W even for the row mask)."""
+    multiples of any tile; H a multiple of 4 and W even for the row mask),
+    then the sizes that take the conv's and the row mask's other paths
+    (probe_ops.PATH_SIZES)."""
     from gdb_nerf_tpu_torch.tools import probe_ops
 
     ragged = (5, 508, 638) if name == "dyn_row_mask" else (5, 509, 637)
-    return [(probe_ops.C, probe_ops.H, probe_ops.W), PROBE_FULL, ragged]
+    return [(probe_ops.C, probe_ops.H, probe_ops.W), PROBE_FULL, ragged,
+            *probe_ops.PATH_SIZES.get(name, [])]
 
 
 def rate(n_bytes: float, flops: float, by: str, ms: float) -> str:
@@ -494,6 +500,8 @@ def phase_plane_ops(kernels):
     from gdb_nerf_tpu_torch.runtime.renderer import set_float32_numerics
     from gdb_nerf_tpu_torch.tools import probe_ops
 
+    assert_no_spill("plane_ops.cu", kernels.build_log)
+    print("[probe] ptxas: no spill in plane_ops.cu")
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     set_float32_numerics(tf32=False)

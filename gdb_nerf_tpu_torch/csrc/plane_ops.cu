@@ -25,14 +25,18 @@
 //   plane_pad            <- probe_pad_value: a zero ring of one pixel
 //
 // Bound: at the FPN's plane size (C8, 512x640) the copies move 10-21 MB and
-// do no arithmetic, so they are bound by device memory.  The upsample, the
-// row mask and the pad run one thread per element (per two for the
-// upsample's stores), consecutive threads on consecutive addresses, 64-bit
-// offsets.  The strided slice runs a 2-D grid: blockIdx.y and threadIdx.y
-// walk output rows, with one 32-bit division a row, and blockIdx.x and
-// threadIdx.x walk the row in 16-byte pieces where every row is 16-byte
-// aligned (sw = 1, W % 4 == 0: a contiguous copy; sw = 2, W % 8 == 0: two
-// loads, the four even values stored as one), in 4-byte elements otherwise.
+// do no arithmetic, so they are bound by device memory.  The upsample and
+// the pad run one thread per element (per two for the upsample's stores),
+// consecutive threads on consecutive addresses, 64-bit offsets.  The
+// strided slice and the row mask run a 2-D grid (row_launch): blockIdx.y
+// and threadIdx.y walk rows, with one 32-bit division a row, and
+// blockIdx.x and threadIdx.x walk the row in 16-byte pieces where every row
+// is 16-byte aligned, in 4-byte elements otherwise.  The slice: sw = 1, W %
+// 4 == 0: a contiguous copy; sw = 2, W % 8 == 0: two loads, the four even
+// values stored as one.  The row mask (W % 4 == 0): the mask is the row's,
+// and a masked row writes zeros without reading x unless o2 takes it; o2's
+// rows are written from the same vectors (W/2 % 4 == 0) or their 8-byte
+// halves.
 //
 // The products do up to 10.7 GFLOP a launch and are bound by the float32
 // FMA rate (67 TFLOP/s on the card; tensor cores, TF32 or 3xTF32, would change
@@ -58,10 +62,23 @@
 // FMAs per staged byte for blocks on every SM and takes stages of 32 (fewer
 // barriers).  The ring takes 41 KB at most: static shared memory.
 //
-// The conv is K2's scheme (plane_conv.cu): an output tile of 8x32 with its
-// halo in shared memory, weights staged in groups of 8 output channels, 8
-// sums a thread; per tap the input channels are summed first, then the taps
-// in order, as the Pallas body sums.
+// The grouped conv does 0.38 GFLOP and moves 21 MB at C8 512x640: 5.6 us at
+// the float32 FMA peak against 6.3 us at the memory rate (the probe's
+// bound is bytes).  One block a 16x32 output tile (640 blocks, all
+// resident at once): its frame (the tile's rows and columns and their halo,
+// every channel) is copied in with cp.async (8-byte column pairs where the
+// padded rows allow), and the outputs go from registers straight to device
+// memory as 16-byte row pieces, under other warps' FMAs.  A thread holds 4
+// pixels along a row x 8 output channels (32 sums): 96 FMAs for 9
+// shared-memory loads (a float2 window, float4 weight broadcasts), sums in
+// (ci, ky, kx) order, float32 FMAs only (within 1e-5 / 1e-4 of the plain
+// version's order, channels per tap, then the taps).  What holds it at
+// 512x640: the FMAs (tools/cut_grouped_conv3.py), with part of the frame
+// load exposed.  Persistent blocks that copied the next tile's frame
+// during this tile's FMAs, and frames copied in channel stages with the
+// FMAs starting on the first, were both slower.  The frame takes 2.4 KB a
+// channel and the weights 288 B a channel and group of 8: c <= 52 (the
+// wrapper refuses more).
 //
 // Interface: plain C, loaded with ctypes; launches on the caller's stream,
 // allocates nothing and returns the cudaError_t of the launch
@@ -95,8 +112,21 @@ constexpr int kMatmulThreadsPerSM = 512;
 // pieces a thread takes before more blocks go along a row.
 constexpr int kSliceScalar = 0, kSliceRows = 1, kSlicePairs = 2;
 constexpr int kSliceUnits = 4;
-// Conv tiles, as plane_conv.cu's conv1.
-constexpr int kConvTH = 8, kConvTW = 32, kGroup = 8;
+// Row-mask paths (a launch takes one for all of its rows).
+constexpr int kMaskScalar = 0, kMaskRows = 1;
+// Grouped conv: output tiles of kConv3TH x kConv3TW pixels, a thread
+// kConv3Px pixels along a row x kGroup output channels, a warp 4 rows x 8
+// strips; the frame's row pitch (2 mod 4 floats, the tile's columns and
+// halo).
+constexpr int kGroup = 8;
+constexpr int kConv3TH = 16, kConv3TW = 32, kConv3Px = 4;
+constexpr int kConv3Pitch = 34;
+constexpr int kConv3Threads = 32 * kConv3TH / 4;
+constexpr int kConv3FR = kConv3TH + 2;         // frame rows
+constexpr int kConv3Pairs = kConv3Pitch / 2;   // frame column pairs
+static_assert(kConv3TW == 8 * kConv3Px && kConv3TH % 4 == 0 && kConv3Pitch % 4 == 2 &&
+                  kConv3Pitch >= kConv3TW + 2,
+              "a warp is 4 rows x 8 strips; the pitch holds the halo, 2 mod 4");
 
 int blocks_for(long long n) {
   const long long b = (n + kThreads - 1) / kThreads;
@@ -104,6 +134,18 @@ int blocks_for(long long n) {
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Block and grid of a kernel whose threads walk `rows` rows of `units`
+// pieces: threadIdx.x and blockIdx.x along a row (as many threads as a row
+// has pieces, rounded up to whole warps, up to kThreads; kSliceUnits pieces
+// a thread before more blocks go along it), threadIdx.y and blockIdx.y over
+// the rows.
+void row_launch(int units, int rows, dim3* block, dim3* grid) {
+  const int bx = std::min(kThreads, (units + 31) / 32 * 32), by = kThreads / bx;
+  *block = dim3(bx, by);
+  *grid = dim3((units + bx * kSliceUnits - 1) / (bx * kSliceUnits),
+               std::min((rows + by - 1) / by, 65535));
+}
 
 // out = x[:, ::sh, ::sw] as rows (c, r) of Wo values; `units` pieces a row:
 // Wo / 4 vectors on the vector paths, Wo values on the scalar one.  32-bit
@@ -135,11 +177,17 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// An asynchronous copy of 16 (4) bytes from global src to shared dst; when
+// An asynchronous copy of 16 (8, 4) bytes from global src to shared dst; when
 // `ok` is false nothing is read and dst is zero-filled.
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
                "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 8 : 0)
                : "memory");
 }
 
@@ -337,80 +385,156 @@ repeat_upsample_kernel(const float* __restrict__ x, float* __restrict__ out, int
   }
 }
 
-// Stages w (C, 9, C) as [group][tap][ci][kGroup], zero for the padding
-// channels of the last group.
-__device__ void load_conv3_weights(float* dst, const float* __restrict__ w, int c) {
-  const int groups = (c + kGroup - 1) / kGroup;
-  const int n = groups * 9 * c * kGroup;
+// Stages w (C, 9, C, 1) as [group][ci][tap][kGroup] (zero past c) by 4-byte
+// cp.async: a float4 pair a tap.
+__device__ void stage_conv3_weights(float* dst, const float* __restrict__ w, int c) {
+  const int n = (c + kGroup - 1) / kGroup * c * 9 * kGroup;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int j = i % kGroup, rest = i / kGroup;
-    const int ci = rest % c, tap = (rest / c) % 9, g = rest / (9 * c);
+    const int tap = rest % 9, gci = rest / 9;
+    const int g = gci / c, ci = gci - g * c;
     const int co = g * kGroup + j;
-    dst[i] = co < c ? w[(co * 9 + tap) * c + ci] : 0.f;
+    cp_async4(dst + i, w + (min(co, c - 1) * 9 + tap) * c + ci, co < c);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-grouped_conv3_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     float* __restrict__ out, int c, int H, int W) {
-  extern __shared__ float smem[];
-  constexpr int tr = kConvTH + 2, tc = kConvTW + 2;
-  float* sx = smem;
-  float* sw = sx + c * tr * tc;
-  const int oy = blockIdx.y * kConvTH, ox = blockIdx.x * kConvTW;
-  const int Hp = H + 2, Wp = W + 2;
-  for (int i = threadIdx.x; i < c * tr * tc; i += blockDim.x) {
-    const int ch = i / (tr * tc), rem = i - ch * tr * tc;
-    const int r = oy + rem / tc, q = ox + rem % tc;
-    sx[i] = (r < Hp && q < Wp) ? __ldg(x + (static_cast<long long>(ch) * Hp + r) * Wp + q) : 0.f;
-  }
-  load_conv3_weights(sw, w, c);
-  __syncthreads();
-  const int ty = threadIdx.x / kConvTW, tx = threadIdx.x % kConvTW;
-  const int y = oy + ty, xx = ox + tx;
-  if (y >= H || xx >= W) return;
-  for (int g = 0; g * kGroup < c; ++g) {
-    const float* gw = sw + g * 9 * c * kGroup;
-    float acc[kGroup] = {};
-#pragma unroll
-    for (int ky = 0; ky < 3; ++ky)
-#pragma unroll
-      for (int kx = 0; kx < 3; ++kx) {
-        const float* wt = gw + (ky * 3 + kx) * c * kGroup;
-        float s[kGroup] = {};
-        for (int ci = 0; ci < c; ++ci) {
-          const float v = sx[(ci * tr + ty + ky) * tc + tx + kx];
-#pragma unroll
-          for (int q = 0; q < kGroup; ++q) s[q] = fmaf(v, wt[ci * kGroup + q], s[q]);
-        }
-#pragma unroll
-        for (int q = 0; q < kGroup; ++q) acc[q] += s[q];
-      }
-#pragma unroll
-    for (int q = 0; q < kGroup; ++q) {
-      const int co = g * kGroup + q;
-      if (co < c) out[(static_cast<long long>(co) * H + y) * W + xx] = acc[q];
+// The frame of the output tile at (oy, ox): x's padded rows oy .. oy +
+// kConv3FR - 1 and columns ox .. ox + kConv3Pitch - 1 of every channel,
+// [c][kConv3FR][kConv3Pitch], zero outside x; copied as column pairs by
+// 8-byte cp.async (`pairs`: Wp even, x 8-byte aligned) or as columns by
+// 4-byte ones.  Divisions by constants only.
+__device__ void load_conv3_frame(float* dst, const float* __restrict__ x, int c, int Hp, int Wp,
+                                 int oy, int ox, bool pairs) {
+  if (pairs) {
+    for (int i = threadIdx.x; i < c * kConv3FR * kConv3Pairs; i += kConv3Threads) {
+      const int p = i % kConv3Pairs, rest = i / kConv3Pairs;
+      const int f = rest % kConv3FR, ch = rest / kConv3FR;
+      const int r = oy + f, q = ox + 2 * p;
+      const bool in_x = r < Hp && q < Wp;
+      cp_async8(dst + (ch * kConv3FR + f) * kConv3Pitch + 2 * p,
+                x + (in_x ? (ch * Hp + r) * Wp + q : 0), in_x);
+    }
+  } else {
+    for (int i = threadIdx.x; i < c * kConv3FR * kConv3Pitch; i += kConv3Threads) {
+      const int q = i % kConv3Pitch, rest = i / kConv3Pitch;
+      const int f = rest % kConv3FR, ch = rest / kConv3FR;
+      const int r = oy + f;
+      const bool in_x = r < Hp && ox + q < Wp;
+      cp_async4(dst + i, x + (in_x ? (ch * Hp + r) * Wp + ox + q : 0), in_x);
     }
   }
 }
 
-// One pass over x (C, H, W): o1 everywhere, o2 from the elements that its
-// two row blocks take.
+// Block (bx, by) computes the output tile at (by kConv3TH, bx kConv3TW):
+// the weights and the frame in one copy group, then the FMAs.  Thread i:
+// tile row 4 (i / 32) + i % 32 / 8, columns kConv3Px (i % 8) .. + kConv3Px
+// - 1.  Per (ci, ky) it reads its window (3 float2 loads: a half-warp's 2
+// rows x 8 strips hit 32 banks at a pitch of 2 mod 4) and each tap's 8
+// weights as two float4 broadcasts, 96 FMAs for 9 loads; sums in (ci, ky,
+// kx) order.  Then each channel's 4 pixels go from registers to out as one
+// 16-byte store (`vec`: W % 4 == 0, out 16-byte aligned; a warp's stores
+// are 4 rows of 128 contiguous bytes), else as 4-byte ones.
+__global__ void __launch_bounds__(kConv3Threads)
+grouped_conv3_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     float* __restrict__ out, int c, int H, int W, bool pairs, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int G = (c + kGroup - 1) / kGroup;
+  float* const sw = smem;
+  float* const frame = sw + G * c * 9 * kGroup;
+  const int oy = blockIdx.y * kConv3TH, ox = blockIdx.x * kConv3TW;
+  stage_conv3_weights(sw, w, c);
+  load_conv3_frame(frame, x, c, H + 2, W + 2, oy, ox, pairs);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const int lane = threadIdx.x % 32;
+  const int row = threadIdx.x / 32 * 4 + lane / 8, j0 = lane % 8 * kConv3Px;
+  const int y = oy + row, x0 = ox + j0;
+  if (y >= H) return;
+  for (int g = 0; g < G; ++g) {
+    const float* gw = sw + g * c * 9 * kGroup;
+    float acc[kConv3Px][kGroup] = {};
+    for (int ci = 0; ci < c; ++ci) {
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky) {
+        const float2* src =
+            reinterpret_cast<const float2*>(frame + (ci * kConv3FR + row + ky) * kConv3Pitch + j0);
+        float in[kConv3Px + 2];
+#pragma unroll
+        for (int e = 0; e < (kConv3Px + 2) / 2; ++e) {
+          const float2 v = src[e];
+          in[2 * e] = v.x;
+          in[2 * e + 1] = v.y;
+        }
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          const float4* wk = reinterpret_cast<const float4*>(gw + (ci * 9 + ky * 3 + kx) * kGroup);
+          const float4 w0 = wk[0], w1 = wk[1];
+          const float wv[kGroup] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+          for (int p = 0; p < kConv3Px; ++p)
+#pragma unroll
+            for (int j = 0; j < kGroup; ++j) acc[p][j] = fmaf(in[p + kx], wv[j], acc[p][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      const int co = g * kGroup + j;
+      if (co >= c) continue;
+      float* d = out + (co * H + y) * W + x0;
+      if (vec) {
+        if (x0 < W)
+          *reinterpret_cast<float4*>(d) = make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+      } else {
+#pragma unroll
+        for (int p = 0; p < kConv3Px; ++p)
+          if (x0 + p < W) d[p] = acc[p][j];
+      }
+    }
+  }
+}
+
+// Rows (c, r) of x (C, H, W) in `units` pieces: 16-byte vectors (kMaskRows:
+// W % 4 == 0, x, o1 and o2 16-byte aligned) or 4-byte elements.  The mask
+// and o2's choice are the row's: a row >= limit writes zeros to o1 and is
+// read only if o2 takes it; a row whose o2 block takes it (r % (H/2) <
+// H/4) writes its first W/2 values there, on the vector path as the same
+// vectors where W/2 % 4 == 0, else as 8-byte halves (o2's rows of W/2
+// floats, W even, are 8-byte aligned).  One division a row.
+template <int kPath>
 __global__ void __launch_bounds__(kThreads)
 row_mask_kernel(const float* __restrict__ x, float* __restrict__ o1, float* __restrict__ o2,
-                int H, int W, int limit, long long n) {
+                int H, int W, int limit, int rows, int units) {
   const int half = H / 2, quarter = H / 4, Wo = W / 2;
-  for (long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x; i < n;
-       i += static_cast<long long>(gridDim.x) * kThreads) {
-    const int j = static_cast<int>(i % W);
-    const long long cr = i / W;
-    const long long c = cr / H;
-    const int r = static_cast<int>(cr - c * H);
-    const float v = __ldg(x + i);
-    o1[i] = r < limit ? v : 0.f;
-    const int blk = r / half, rr = r - blk * half;
-    if (rr < quarter && j < Wo)
-      o2[(c * half + blk * quarter + rr) * Wo + j] = v;
+  for (int row = blockIdx.y * blockDim.y + threadIdx.y; row < rows;
+       row += gridDim.y * blockDim.y) {
+    const int c = row / H, r = row - c * H;
+    const int blk = r < half ? 0 : 1, rr = r - blk * half;
+    const bool keep = r < limit, take = rr < quarter;
+    const float* in = x + row * W;
+    float* d1 = o1 + row * W;
+    float* d2 = o2 + ((2 * c + blk) * quarter + rr) * Wo;
+    for (int u = blockIdx.x * blockDim.x + threadIdx.x; u < units; u += gridDim.x * blockDim.x) {
+      if (kPath == kMaskRows) {
+        const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 v = keep || take ? __ldg(reinterpret_cast<const float4*>(in) + u) : zero;
+        reinterpret_cast<float4*>(d1)[u] = keep ? v : zero;
+        const int col = 4 * u;
+        if (take && col < Wo) {
+          if (Wo % 4 == 0) {
+            *reinterpret_cast<float4*>(d2 + col) = v;
+          } else {
+            *reinterpret_cast<float2*>(d2 + col) = make_float2(v.x, v.y);
+            if (col + 2 < Wo) *reinterpret_cast<float2*>(d2 + col + 2) = make_float2(v.z, v.w);
+          }
+        }
+      } else {
+        const float v = keep || take ? __ldg(in + u) : 0.f;
+        d1[u] = keep ? v : 0.f;
+        if (take && u < Wo) d2[u] = v;
+      }
+    }
   }
 }
 
@@ -431,9 +555,8 @@ pad_kernel(const float* __restrict__ x, float* __restrict__ out, int H, int W, l
 
 }  // namespace
 
-// x (C, H, W) with C * H * W < 2^31.  Rows of threads (blockDim.y of them)
-// walk output rows, the threads of a row its pieces: as many threads as a
-// row has pieces, rounded up to whole warps, up to kThreads.
+// x (C, H, W) with C * H * W < 2^31; the grid of row_launch over the output
+// rows.
 extern "C" int plane_strided_slice(const void* x, void* out, int C, int H, int W, int sh, int sw,
                                    void* stream) {
   if (C < 1 || H < 1 || W < 1 || sh < 1 || sw < 1 ||
@@ -446,10 +569,8 @@ extern "C" int plane_strided_slice(const void* x, void* out, int C, int H, int W
                    : sw == 2 && W % 8 == 0 ? kSlicePairs
                                            : kSliceScalar;
   const int units = path == kSliceScalar ? Wo : Wo / 4;
-  const int bx = std::min(kThreads, (units + 31) / 32 * 32), by = kThreads / bx;
-  const dim3 block(bx, by);
-  const dim3 grid((units + bx * kSliceUnits - 1) / (bx * kSliceUnits),
-                  std::min((rows + by - 1) / by, 65535));
+  dim3 block, grid;
+  row_launch(units, rows, &block, &grid);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   float* of = static_cast<float*>(out);
@@ -516,34 +637,52 @@ extern "C" int plane_repeat_upsample(const void* x, void* out, int C, int H, int
   return cudaGetLastError();
 }
 
-// H, W: the output's size; x is (C, H+2, W+2).
+// Bytes of grouped_conv3_kernel's shared memory at c channels: the
+// weights and the frame.
+size_t conv3_smem(int c) {
+  const size_t groups = (c + kGroup - 1) / kGroup;
+  return (groups * kGroup * 9 * c + static_cast<size_t>(c) * kConv3FR * kConv3Pitch) *
+         sizeof(float);
+}
+
+// H, W: the output's size; x is (C, H+2, W+2), C * (H+2) * (W+2) < 2^31.
 extern "C" int plane_grouped_conv3(const void* x, const void* w, void* out, int C, int H, int W,
                                    void* stream) {
-  if (C < 1 || H < 1 || W < 1) return cudaErrorInvalidValue;
-  const size_t groups = (C + kGroup - 1) / kGroup;
-  const size_t smem =
-      (static_cast<size_t>(C) * (kConvTH + 2) * (kConvTW + 2) + groups * kGroup * 9 * C) *
-      sizeof(float);
-  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
+  const int tiles_y = (H + kConv3TH - 1) / kConv3TH;
+  const size_t smem = conv3_smem(C);
+  if (C < 1 || H < 1 || W < 1 || smem > static_cast<size_t>(kMaxSmem) || tiles_y > 65535 ||
+      static_cast<long long>(C) * (H + 2) * (W + 2) > INT_MAX)
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
       grouped_conv3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((W + kConvTW - 1) / kConvTW, (H + kConvTH - 1) / kConvTH);
-  grouped_conv3_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const bool pairs = (W + 2) % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 8 == 0;
+  const bool vec = W % 4 == 0 && aligned16(out);
+  const dim3 grid((W + kConv3TW - 1) / kConv3TW, tiles_y);
+  grouped_conv3_kernel<<<grid, kConv3Threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(out), C, H,
-      W);
+      W, pairs, vec);
   return cudaGetLastError();
 }
 
 // H % 4 == 0 and W % 2 == 0: the probe's two row blocks of H/2, each giving
-// o2 a block of H/4 rows and W/2 columns.
+// o2 a block of H/4 rows and W/2 columns; C * H * W < 2^31.
 extern "C" int plane_row_mask(const void* x, void* o1, void* o2, int C, int H, int W, int limit,
                               void* stream) {
-  if (C < 1 || H < 4 || W < 2 || H % 4 || W % 2) return cudaErrorInvalidValue;
-  const long long n = static_cast<long long>(C) * H * W;
-  row_mask_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(o1), static_cast<float*>(o2), H, W, limit,
-      n);
+  if (C < 1 || H < 4 || W < 2 || H % 4 || W % 2 || static_cast<long long>(C) * H * W > INT_MAX)
+    return cudaErrorInvalidValue;
+  const bool vec = W % 4 == 0 && aligned16(x) && aligned16(o1) && aligned16(o2);
+  const int rows = C * H, units = vec ? W / 4 : W;
+  dim3 block, grid;
+  row_launch(units, rows, &block, &grid);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  float* p1 = static_cast<float*>(o1);
+  float* p2 = static_cast<float*>(o2);
+  if (vec)
+    row_mask_kernel<kMaskRows><<<grid, block, 0, s>>>(xf, p1, p2, H, W, limit, rows, units);
+  else
+    row_mask_kernel<kMaskScalar><<<grid, block, 0, s>>>(xf, p1, p2, H, W, limit, rows, units);
   return cudaGetLastError();
 }
 

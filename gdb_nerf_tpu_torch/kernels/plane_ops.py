@@ -41,6 +41,11 @@ The product kernel takes one of two block tiles (``MATMUL_TILES``, the
 table of ``csrc/plane_ops.cu``); ``select_tile`` picks the row per launch
 from how evenly its blocks fill the card's SMs, here in Python where the
 CPU tests reach it, and the wrapper passes its index to the entry point.
+
+The grouped conv runs a block a ``CONV3_TILE`` output tile with the tile's
+frame of every channel in shared memory; a channel count whose frame and
+weights do not fit a block's shared memory (``grouped_conv3_fits``: c <=
+52) is refused with ``ValueError``.
 """
 
 from __future__ import annotations
@@ -75,6 +80,13 @@ MATMUL_TILES = ((64, 128), (32, 128))
 # The smaller tile runs fewer FMAs per byte it stages: it is taken only where
 # it fills the SMs more evenly by more than this share.
 FILL_MARGIN = 0.2
+# The grouped conv's output tile (rows, cols) and its frame's row pitch in
+# floats: csrc/plane_ops.cu's kConv3TH, kConv3TW, kConv3Pitch.  A block's
+# shared memory holds the weights [group][ci][tap][8] and the frame (c, TH
+# + 2, pitch).
+CONV3_TILE = (16, 32)
+CONV3_PITCH = 34
+MAX_SMEM = 232_448  # bytes a block may use on sm_90
 
 
 def matmul_right(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -234,6 +246,17 @@ def work(name: str, args) -> tuple[int, int]:
     return 4 * (n_in + n_out), flops
 
 
+def grouped_conv3_smem(c: int) -> int:
+    """Bytes of shared memory a grouped-conv block takes at c channels."""
+    return 4 * (-(-c // 8) * 8 * 9 * c + c * (CONV3_TILE[0] + 2) * CONV3_PITCH)
+
+
+def grouped_conv3_fits(c: int) -> bool:
+    """Whether the grouped conv launches at c channels: its block's shared
+    memory fits (c <= 52)."""
+    return grouped_conv3_smem(c) <= MAX_SMEM
+
+
 def tile_counts(batch: int, M: int, N: int, a_batched: bool, b_batched: bool) -> list[int]:
     """Blocks of each ``MATMUL_TILES`` row for ``out[b] = a[b] @ b[b]``
     (M, N) over ``batch``: a right product (a batched, b shared) folds the
@@ -366,6 +389,9 @@ class PlaneOpsKernels:
         if all(a.device.type == "cpu" for a in args):
             return REFERENCES[name](*args)
         _check(name, args, shapes)
+        if name == "grouped_conv3" and not grouped_conv3_fits(args[0].shape[0]):
+            raise ValueError(f"{name}: c={args[0].shape[0]} does not fit a block's shared memory "
+                             "(the frame of a 16x32 tile and the weights: c <= 52)")
         outs = [torch.empty(s, device=args[0].device, dtype=torch.float32) for s in shapes]
         x, C, H, W = args[0], *args[0].shape
         if name in ("sublane_stride2", "lane_stride2"):

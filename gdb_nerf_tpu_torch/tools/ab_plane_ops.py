@@ -1,16 +1,17 @@
-"""The strided slice and the product of ``csrc/plane_ops.cu`` against an
-earlier tree's and PyTorch's calls, on one card in one run.
+"""The K7 kernels of ``csrc/plane_ops.cu`` that were redesigned for Hopper
+against an earlier tree's and PyTorch's calls, on one card in one run.
 
-Five probes at the FPN's plane size (C8, 512x640), float32, TF32 off:
+Seven probes at the FPN's plane size (C8, 512x640), float32, TF32 off:
 ``sublane_stride2`` (K7a), ``lane_stride2`` (K7b), ``lane_downsample_matmul``
-(K7c), ``sublane_downsample_matmul`` (K7d) and ``upsample_matmul`` (K7f).
-Each is run three ways: PyTorch's call (``probe_ops.library_call``), the
-earlier tree's kernel through that tree's own ``PlaneOpsKernels`` (its
-package imported from OTHER beside this one, its library built into
-OTHER/build/kernels), and this tree's.  Each must equal the plain version
-bit for bit; then ``measure.timed_ms`` times them, ``ITERS`` calls a turn,
-in turns library, earlier, this, this, earlier, library, so that the card's
-drift falls on both kernels alike.
+(K7c), ``sublane_downsample_matmul`` (K7d), ``upsample_matmul`` (K7f),
+``grouped_conv3`` (K7g) and ``dyn_row_mask`` (K7h).  Each is run three ways:
+PyTorch's call (``probe_ops.library_call``), the earlier tree's kernel
+through that tree's own ``PlaneOpsKernels`` (its package imported from
+OTHER beside this one, its library built into OTHER/build/kernels), and
+this tree's.  Each must agree with the plain version (``probe_ops.agree``:
+bit for bit, the conv within 1e-5 / 1e-4); then ``measure.timed_ms`` times
+them, ``ITERS`` calls a turn, in turns library, earlier, this, this,
+earlier, library, so that the card's drift falls on both kernels alike.
 
     mkdir -p build/parent
     git archive <commit> gdb_nerf_tpu_torch | tar -x -C build/parent
@@ -22,7 +23,7 @@ GB/s (and the tile rows this tree's product takes); then, for each product
 launch of K7c, K7d and K7f, this tree's kernel at every row of the tile
 table (``tile_sweep``), the row the wrapper picks marked.  The same as JSON
 in ``--out`` (``build/ab_plane_ops.json``).  It needs a GPU and exits non-zero
-without one, or if a version differs from the plain one.
+without one, or if a version disagrees with the plain one.
 """
 
 from __future__ import annotations
@@ -41,29 +42,31 @@ from gdb_nerf_tpu_torch.tools import probe_ops
 from gdb_nerf_tpu_torch.tools.ab_common import card_name, import_from_tree, ptxas_lines
 
 NAMES = ("sublane_stride2", "lane_stride2", "lane_downsample_matmul",
-         "sublane_downsample_matmul", "upsample_matmul")
+         "sublane_downsample_matmul", "upsample_matmul", "grouped_conv3", "dyn_row_mask")
 ORDER = ("library", "other", "this", "this", "other", "library")
 SIZE = (8, 512, 640)
 ITERS = 50
 
 
 def compare(other, this: plane_ops.PlaneOpsKernels, name: str, device: torch.device) -> dict:
-    """One probe's three versions: equality with the plain version, then the
-    times in ``ORDER``."""
+    """One probe's three versions: agreement with the plain version, then
+    the times in ``ORDER``."""
     args = probe_ops.inputs(name, *SIZE, device)
     want = plane_ops.REFERENCES[name](*args)
     fns = {"library": probe_ops.library_call(name, args),
            "other": lambda: getattr(other, name)(*args),
            "this": lambda: getattr(this, name)(*args)}
-    equal = {k: torch.equal(f(), want) for k, f in fns.items()}
-    if not all(equal.values()):
-        raise AssertionError(f"{name}: a version differs from the plain one: {equal}")
+    agree = {k: probe_ops.agree(name, f(), want) for k, f in fns.items()}
+    if not all(ok for _, ok in agree.values()):
+        raise AssertionError(f"{name}: a version disagrees with the plain one "
+                             f"(max|err|, agrees): {agree}")
     times = {k: [] for k in fns}
     for k in ORDER:
         times[k].append(timed_ms(fns[k], device, ITERS))
     n_bytes, flops = plane_ops.work(name, args)
     b_ms, by = bound_ms(n_bytes, flops, torch.float32)
-    r = {"bound_ms": b_ms, "bound_by": by, "bytes": n_bytes, "flops": flops, "times": times}
+    r = {"bound_ms": b_ms, "bound_by": by, "bytes": n_bytes, "flops": flops, "times": times,
+         "max_abs_err": {k: e for k, (e, _) in agree.items()}}
     if name in plane_ops.PRODUCTS:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         r["tile"] = [plane_ops.tile_name(t) for t in plane_ops.product_tiles(name, args, sms)]

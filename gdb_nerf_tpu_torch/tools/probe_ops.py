@@ -59,6 +59,15 @@ TILE_CASES = [
 # (scalar); with H odd.
 SLICE_WIDTHS = (648, 644, 637)
 SLICE_C, SLICE_H = 3, 37
+# Sizes (C, H, W) that take the grouped conv's and the row mask's paths
+# beside the probe's, the FPN's and the ragged sizes.  The conv: 12
+# channels (two groups of 8) at 16x32 tile edges with 16-byte stores; 3
+# channels by column pairs with 4-byte stores (W % 4 == 2).  The
+# row mask: 16-byte rows with o2 in 8-byte halves (W % 4 == 0, W/2 % 4 ==
+# 2), and H = 12, whose masked rows 7-11 include o2's rows 7 and 8.  The
+# card tests and the smoke run them.
+PATH_SIZES = {"grouped_conv3": [(12, 336, 704), (3, 48, 702)],
+              "dyn_row_mask": [(5, 508, 644), (3, 12, 20)]}
 
 
 def _selection(rows: int, cols: int, r, c) -> torch.Tensor:

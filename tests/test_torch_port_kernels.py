@@ -304,7 +304,8 @@ ROW_MASK_CASES = [(8, 64, 256), (5, 36, 46), (3, 4, 2)]
 @pytest.mark.parametrize("name", plane_ops.KERNELS)
 @torch.no_grad()
 def test_plane_op_kernel_matches_plain_version(probe_kernels, name):
-    cases = ROW_MASK_CASES if name == "dyn_row_mask" else PROBE_CASES
+    cases = (ROW_MASK_CASES if name == "dyn_row_mask" else PROBE_CASES) + \
+        probe_ops.PATH_SIZES.get(name, [])
     for k, size in enumerate(cases):
         args = probe_ops.inputs(name, *size, "cuda", seed=k)
         got = getattr(probe_kernels, name)(*args)
@@ -389,6 +390,8 @@ def test_plane_op_wrappers_raise_on_what_the_kernels_do_not_take(probe_kernels):
         "non-contiguous matrix": ("lane_downsample_matmul", (x, s.t().contiguous().t())),
         "matrix bf16": ("sublane_downsample_matmul", (x, torch.randn(4, 8, device="cuda").bfloat16())),
         "conv weights": ("grouped_conv3", (x, torch.randn(3, 9, 2, 1, device="cuda"))),
+        "conv channels": ("grouped_conv3", (torch.randn(53, 5, 6, device="cuda"),
+                                            torch.randn(53, 9, 53, 1, device="cuda"))),
         "row mask H": ("dyn_row_mask", (torch.randn(3, 10, 10, device="cuda"),)),
         "row mask W": ("dyn_row_mask", (torch.randn(3, 8, 9, device="cuda"),)),
     }

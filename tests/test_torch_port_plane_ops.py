@@ -15,10 +15,13 @@ and products with a random matrix sum float32 in another order than XLA:
 atol 1e-5, rtol 1e-4, the plane convs' tolerance.
 
 The CUDA kernels cannot run here; ``test_select_matmul_tile_replay``
-replays the product's tiling of each tile row, and
-``test_strided_slice_path_replay`` the slice's paths and loops, in torch
-from the constants of ``csrc/plane_ops.cu``; ``test_wrapper_tile_choice``
-holds the wrapper's choice of tile row.
+replays the product's tiling of each tile row,
+``test_strided_slice_path_replay`` the slice's paths and loops,
+``test_grouped_conv3_replay`` the conv's tiling, window and weight offsets
+and store paths, and ``test_row_mask_path_replay`` the row mask's paths,
+in torch from the constants of ``csrc/plane_ops.cu``;
+``test_wrapper_tile_choice`` holds the wrapper's choice of tile row and
+``test_grouped_conv3_shape_line`` the conv's channel line.
 """
 
 import os
@@ -653,19 +656,222 @@ def test_strided_slice_path_replay(W):
         assert 322 % 4 != 0
 
 
+def _replay_grouped_conv3(x, w):
+    """out = the valid 3x3 conv of x with w as grouped_conv3_kernel computes
+    it, from the constants of csrc/plane_ops.cu: one block a kConv3TH x
+    kConv3TW tile; the weights staged [group][ci][tap][kGroup] (zero past
+    c); the frame of the tile's rows and columns and halo at kConv3Pitch,
+    zero outside x (by column pairs where Wp is even: a pair is inside x
+    or outside it whole); thread i on tile row 4 (i / 32) + i % 32 / 8 and
+    columns kConv3Px (i % 8) ..; per (ci, ky) a window of float2 loads that
+    stays in the frame and hits 32 banks a half-warp; fmaf in (ci, ky, kx)
+    order (float64 products, one rounding a step); stores as 16-byte
+    pieces (W % 4 == 0, each inside the row whole and 16-byte aligned) or 4
+    bytes.  Returns (out, writes per output, the store widths used)."""
+    k = _cu_constants()
+    th, tw, px, pitch, grp = (k[n] for n in ("kConv3TH", "kConv3TW", "kConv3Px", "kConv3Pitch",
+                                             "kGroup"))
+    threads, fr = 32 * th // 4, th + 2
+    C, Hp, Wp = x.shape
+    H, W = Hp - 2, Wp - 2
+    G = -(-C // grp)
+    i = torch.arange(G * C * 9 * grp)
+    j, rest = i % grp, i // grp
+    tap, gci = rest % 9, rest // 9
+    co = gci // C * grp + j
+    sw = torch.where(co < C, w[co.clamp(max=C - 1), tap, gci % C, 0], 0.0).view(G, C, 9, grp)
+    t = torch.arange(threads)
+    lane = t % 32
+    row, j0 = t // 32 * 4 + lane // 8, lane % 8 * px
+    assert int(j0.max()) + px + 2 <= pitch and pitch % 4 == 2 and threads % 32 == 0
+    for ky in range(3):  # float2 window loads: aligned, 32 banks a half-warp
+        start = (row + ky) * pitch + j0
+        assert bool((start % 2 == 0).all())
+        for e in range((px + 2) // 2):
+            for half in (start // 2 + e).view(-1, 16):
+                assert len(set((2 * half % 32).tolist())) == 16
+    pairs = Wp % 2 == 0
+    vec = W % 4 == 0
+    xp = F.pad(x, (0, tw + pitch, 0, th + 2))  # zero outside x
+    out = torch.full((C, H, W), float("nan"))
+    writes = torch.zeros(C, H, W, dtype=torch.int64)
+    widths = set()
+    for oy in range(0, H, th):
+        for ox in range(0, W, tw):
+            if pairs:  # a pair starting inside x ends inside it
+                q = ox + 2 * torch.arange(pitch // 2)
+                assert bool(((q < Wp) == (q + 1 < Wp)).all())
+            frame = xp[:, oy:oy + fr, ox:ox + pitch]
+            y, x0 = oy + row, ox + j0
+            for g in range(G):
+                acc = torch.zeros(threads, px, grp, dtype=torch.float64)
+                for ci in range(C):
+                    for ky in range(3):
+                        win = frame[ci, row + ky][torch.arange(threads)[:, None],
+                                                  j0[:, None] + torch.arange(px + 2)]
+                        for kx in range(3):
+                            wt = sw[g, ci, 3 * ky + kx].double()
+                            prod = win[:, kx:kx + px, None].double() * wt
+                            acc = (acc + prod).float().double()
+                co = g * grp + torch.arange(grp)
+                rows = (y < H)[:, None] & (co < C)  # (thread, channel) pieces stored
+                if vec:
+                    rows &= (x0 < W)[:, None]
+                    assert bool((x0[(x0 < W)] + px <= W).all())
+                    start = (co[None] * H + y[:, None]) * W + x0[:, None]
+                    assert bool((start[rows] % 4 == 0).all())
+                widths |= {16 if vec else 4}
+                for p in range(px):
+                    keep = rows & (x0 + p < W)[:, None]
+                    n, jj = keep.nonzero(as_tuple=True)
+                    out[co[jj], y[n], x0[n] + p] = acc[n, p, jj].float()
+                    writes[co[jj], y[n], x0[n] + p] += 1
+    return out, writes, widths
+
+
+@pytest.mark.parametrize("C, H, W", [(12, 21, 70), (5, 20, 64), (3, 17, 37)],
+                         ids=["two-groups-pairs-4byte", "pairs-16byte", "4byte-frame"])
+def test_grouped_conv3_replay(C, H, W):
+    """The grouped conv's tiling replayed in torch from csrc/plane_ops.cu's
+    constants (``_replay_grouped_conv3``) on ragged planes: 12 channels (two
+    groups of 8, the second cut) with column pairs and 4-byte stores (W % 4
+    == 2), 16-byte stores (W % 4 == 0), and a 4-byte frame (W odd); every
+    output written once, within 1e-5 / 1e-4 of the plain version."""
+    g = torch.Generator().manual_seed(C)
+    x = torch.randn(C, H + 2, W + 2, generator=g)
+    w = torch.randn(C, 9, C, 1, generator=g) * 0.2
+    out, writes, widths = _replay_grouped_conv3(x, w)
+    assert bool((writes == 1).all())
+    assert widths == ({16} if W % 4 == 0 else {4})
+    torch.testing.assert_close(out, plane_ops.grouped_conv3_reference(x, w), atol=ATOL, rtol=RTOL)
+
+
+def test_grouped_conv3_shape_line(monkeypatch):
+    """The wrapper's tile, pitch and shared-memory limit are the source's,
+    and its line between the channel counts the conv launches and those it
+    refuses with ``ValueError`` before the launch: the tile's frame and the
+    weights fit a block's shared memory up to c = 52 (the earlier kernel,
+    8x32 tiles without a pitch, took up to 63)."""
+    k = _cu_constants()
+    assert plane_ops.CONV3_TILE == (k["kConv3TH"], k["kConv3TW"])
+    assert plane_ops.CONV3_PITCH == k["kConv3Pitch"] and plane_ops.MAX_SMEM == k["kMaxSmem"]
+    assert max(c for c in range(1, 80) if plane_ops.grouped_conv3_fits(c)) == 52
+    launched = []
+    monkeypatch.setattr(plane_ops, "_check", lambda *a: None)
+    monkeypatch.setattr(plane_ops.PlaneOpsKernels, "_launch",
+                        lambda self, name, entry, *args: launched.append(entry))
+    kernels = plane_ops.PlaneOpsKernels()
+    for c in (52, 53):
+        args = (torch.empty(c, 7, 9, device="meta"), torch.empty(c, 9, c, 1, device="meta"))
+        if c == 53:
+            with pytest.raises(ValueError, match="shared memory"):
+                kernels.grouped_conv3(*args)
+        else:
+            kernels.grouped_conv3(*args)
+    assert launched == ["plane_grouped_conv3"] and kernels.launches["grouped_conv3"] == 1
+
+
+def _replay_row_mask(x, limit):
+    """(o1, o2) as plane_row_mask computes them from a 16-byte aligned x: its
+    path (16-byte pieces if W % 4 == 0, else 4-byte elements), the grid of
+    row_launch and the row loop of row_mask_kernel, from the constants of
+    csrc/plane_ops.cu; o2 from the same vectors where W/2 % 4 == 0, else as
+    8-byte halves.  Returns (path, o1, o2, writes of o1 and of o2, whether
+    every vector access was aligned, the rows read)."""
+    k = _cu_constants()
+    C, H, W = x.shape
+    half, quarter, Wo = H // 2, H // 4, W // 2
+    path = k["kMaskRows"] if W % 4 == 0 else k["kMaskScalar"]
+    v = 4 if path == k["kMaskRows"] else 1
+    units, rows = W // v, C * H
+    bx = min(k["kThreads"], -(-units // 32) * 32)
+    by = k["kThreads"] // bx
+    gx, gy = -(-units // (bx * k["kSliceUnits"])), min(-(-rows // by), 65535)
+    flat = x.reshape(-1)
+    o1, o2 = torch.full((C * H * W,), float("nan")), torch.full((C * half * Wo,), float("nan"))
+    w1, w2 = torch.zeros(o1.shape, dtype=torch.int64), torch.zeros(o2.shape, dtype=torch.int64)
+    aligned, read = True, set()
+    us = np.concatenate([np.arange(t, units, gx * bx) for t in range(gx * bx)])
+    for row in np.concatenate([np.arange(r, rows, gy * by) for r in range(gy * by)]):
+        c, r = divmod(int(row), H)
+        blk = 0 if r < half else 1
+        rr = r - blk * half
+        keep, take = r < limit, rr < quarter
+        d2 = ((2 * c + blk) * quarter + rr) * Wo
+        if keep or take:
+            read.add((c, r))
+        for u in us:
+            col = int(u) * v
+            vals = flat[row * W + col:row * W + col + v] if keep or take else torch.zeros(v)
+            o1[row * W + col:row * W + col + v] = vals if keep else 0.0
+            w1[row * W + col:row * W + col + v] += 1
+            aligned &= (row * W + col) % v == 0
+            if take and col < Wo:
+                if v == 1 or Wo % 4 == 0:
+                    pieces = [(d2 + col, v)]
+                else:  # 8-byte halves, the second only inside o2's row
+                    pieces = [(d2 + col, 2)] + ([(d2 + col + 2, 2)] if col + 2 < Wo else [])
+                for at, n in pieces:
+                    o2[at:at + n] = vals[at - d2 - col:at - d2 - col + n]
+                    w2[at:at + n] += 1
+                    aligned &= at % n == 0
+    return path, o1.view(C, H, W), o2.view(C, half, Wo), w1, w2, aligned, read
+
+
+@pytest.mark.parametrize("W", [24, 20, 18])
+def test_row_mask_path_replay(W):
+    """The row mask's paths replayed from csrc/plane_ops.cu's constants at H
+    = 12 (limit 7: masked rows 7 and 8 sit in o2's second block): W = 24
+    the 16-byte path with o2 from the same vectors (W/2 % 4 == 0), 20 the
+    16-byte path with o2 in 8-byte halves (W/2 = 10), 18 the 4-byte path
+    (W % 4 == 2).  Both outputs equal the plain version's, every element is
+    written once, every vector access is aligned, and of the masked rows
+    only those that o2 takes are read."""
+    k = _cu_constants()
+    C, H = 2, 12
+    x = torch.arange(C * H * W, dtype=torch.float32).reshape(C, H, W) + 1
+    path, o1, o2, w1, w2, aligned, read = _replay_row_mask(x, H - plane_ops.ROW_MASK_OFFSET)
+    assert path == (k["kMaskRows"] if W % 4 == 0 else k["kMaskScalar"])
+    want1, want2 = plane_ops.dyn_row_mask_reference(x)
+    assert torch.equal(o1, want1) and torch.equal(o2, want2)
+    assert bool((w1 == 1).all()) and bool((w2 == 1).all()) and aligned
+    assert read == {(c, r) for c in range(C) for r in (*range(7), 7, 8)}
+
+
 def test_ab_tool_needs_a_gpu_and_takes_the_smokes_library_calls(monkeypatch):
     """The A/B tool stops without a GPU; on the card it runs the probes that
-    the two redesigned kernels serve, in turns that give each version two
-    places, one early and one late."""
+    the redesigned kernels serve (the slice, the product, the grouped conv
+    and the row mask), in turns that give each version two places, one
+    early and one late."""
     from gdb_nerf_tpu_torch.tools import ab_plane_ops
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as exc:
         ab_plane_ops.main([str(plane_ops.SOURCE.parents[2])])
     assert exc.value.code not in (None, 0)
-    assert set(ab_plane_ops.NAMES) == set(plane_ops.PRODUCTS) | {"sublane_stride2", "lane_stride2"}
+    assert set(ab_plane_ops.NAMES) == set(plane_ops.PRODUCTS) | {
+        "sublane_stride2", "lane_stride2", "grouped_conv3", "dyn_row_mask"}
     order = ab_plane_ops.ORDER
     assert order == order[::-1] and sorted(order) == sorted(2 * ("library", "other", "this"))
+
+
+def test_cut_tool_edits_the_source_and_needs_a_gpu(monkeypatch):
+    """Each cut of tools/cut_grouped_conv3.py finds its anchor in
+    csrc/plane_ops.cu once and changes the text (a cut that no longer
+    applies raises, not times the whole kernel twice); the tool stops
+    without a GPU."""
+    from gdb_nerf_tpu_torch.tools import cut_grouped_conv3
+
+    text = plane_ops.SOURCE.read_text()
+    assert set(cut_grouped_conv3.CUTS) == {"whole", "no_load", "no_fma", "no_store"}
+    for cut, edits in cut_grouped_conv3.CUTS.items():
+        assert (cut_grouped_conv3.cut_source(text, cut) == text) == (not edits), cut
+    with pytest.raises(ValueError, match="occurs 0 times"):
+        cut_grouped_conv3.cut_source(text.replace("load_conv3_frame(", "load("), "no_load")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        cut_grouped_conv3.main([])
+    assert exc.value.code not in (None, 0)
 
 
 def test_ab_tool_imports_the_other_trees_wrappers(tmp_path):
