@@ -60,7 +60,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      one kernel launch per request and slab, the mean latency (first request
      excluded), each request's host enqueue time, the peak device memory,
      and a check that the forward makes no synchronizing call;
-  5. one JSON line of kernel results, then the JSON result line.
+  6. training (configs/dtu_pretrain.yaml, float32): (a) 11 steps of the
+     port's Trainer at 512x640, B = 4, on the
+     synthetic loader, each step's view count, loss and CUDA-event time,
+     the peak device memory and the card's name and power limit, then one
+     step at V = 4; (b) 20 steps on one 128x160 batch, the last loss below
+     the first; (c) Trainer.val after (a) through the bundle-head kernel,
+     its launch count set to 0 before and read after, the kernel's pack
+     refreshed after the optimizer steps and held to the plain head on the
+     trained weights; (d) the evaluate path of ``run --type evaluate`` on 2
+     requests from a checkpoint of (a), its launch count read the same way;
+     (e) one step at 64x64 on the card against the same step on the CPU
+     (loss and every parameter's gradient);
+  7. one JSON line of the training numbers, one of kernel results (the
+     bundle head's with its launches in 6c and 6d), then the JSON result line.
 
 Needs one CUDA device, nvcc, torch and numpy; no network, no yaml, and
 nothing of jax or of the JAX package (gdb_nerf_tpu): the config literal and
@@ -119,6 +132,50 @@ F32_ATOL = F32_RTOL = 1e-4
 CONV_F32_ATOL, CONV_F32_RTOL = 1e-5, 1e-4
 REQUESTS = 5
 ITERS = 20  # timed calls per kernel, plain version or library call
+
+# The trainer's part of configs/dtu_pretrain.yaml (over the package
+# defaults), as load_cfg merges it: every section that the network, the
+# trainer, the loader and the evaluator read.  tests/test_torch_port_imports.py
+# holds each section equal to load_cfg's.
+DTU_PRETRAIN = {
+    "network_module": "networks.gdb_nerf.network",
+    "evaluator_module": "evaluators.gdb_nerf",
+    "compute_dtype": "float32",
+    "fpn": DTU_EVAL["fpn"],
+    "mvs": DTU_EVAL["mvs"],
+    "nerf": {**DTU_EVAL["nerf"], "max_num_samples": 6, "is_adaptive": False},
+    "train": {
+        "pretrain": "pretrained", "epoch": 300, "num_workers": 4, "collator": "enerf",
+        "batch_sampler": "enerf", "shuffle": True, "eps": 1e-08,
+        "sampler_meta": {"input_views_num": [2, 3, 4], "input_views_prob": [0.1, 0.8, 0.1],
+                         "render_scale": [1.0], "scale_prob": [1.0]},
+        "optim": "adam", "lr": 0.0005, "weight_decay": 0.0,
+        "scheduler": {"type": "exponential", "milestones": [80, 120, 200, 240], "gamma": 0.5,
+                      "decay_epochs": 50},
+        "batch_size": 4,
+    },
+    "test": {
+        "batch_size": 1, "collator": "enerf", "epoch": -1, "batch_sampler": "enerf",
+        "sampler_meta": {"input_views_num": [3], "input_views_prob": [1.0],
+                         "render_scale": [1.0], "scale_prob": [1.0]},
+        "eval_depth": False, "eval_center": False,
+    },
+    "ep_iter": 1000, "log_interval": 1, "eval_lpips": True, "save_result": False,
+    "skip_eval": False, "resume": True,
+}
+TRAIN_STEPS = 11  # phase 6a; the first step is excluded from the step time
+OVERFIT_STEPS = 20  # phase 6b
+# Phase 6e, one step on the card against the same step on the CPU (float32,
+# TF32 off): the loss within 1e-4 relative; each parameter's gradient g
+# within 1e-3 relative L2, the tolerances that hold the port's CPU step to
+# the JAX package's (tests/test_torch_port_train.py), plus a floor of 1e-6
+# of the step's largest gradient element per element: a gradient that
+# cancels to near 0 is held in absolute terms.  The head's view-weight
+# layer (agg_w_fc) is one: a softmax over views ignores a shift shared by
+# all views, and its gradient (1.3e-6 against a largest element of 0.146)
+# differs by 6.1e-3 relative, 8.1e-9 absolute (NVIDIA H100 80GB HBM3).  The
+# card sums its convolutions and gathers in another order.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_GRAD_FLOOR = 1e-4, 1e-3, 1e-6
 
 
 def namespace(d: dict) -> SimpleNamespace:
@@ -663,6 +720,218 @@ def phase_serve(g, sd, rgb_f32_golden):
     return launches
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
+def train_cfg(hw, batch_size: int, ep_iter: int) -> SimpleNamespace:
+    """DTU_PRETRAIN on the synthetic loader at ``hw``, with its run
+    directories under build/."""
+    build = os.path.join(REPO, "build", "smoke_train")
+    return namespace({
+        **DTU_PRETRAIN, "train": {**DTU_PRETRAIN["train"], "batch_size": batch_size},
+        "ep_iter": ep_iter, "synthetic": True, "synthetic_hw": list(hw),
+        "train_dataset": {"split": "train"}, "test_dataset": {"split": "test"},
+        "record_dir": os.path.join(build, "record"), "result_dir": os.path.join(build, "result"),
+        "trained_model_dir": os.path.join(build, "trained_model"), "device": "cuda",
+    })
+
+
+def make_trainer(cfg, device="cuda", state=None):
+    """A trainer of a network initialized from torch's generator seeded
+    with 0 (or loaded with ``state``)."""
+    import torch
+
+    from gdb_nerf_tpu_torch.runtime.registry import make_network
+    from gdb_nerf_tpu_torch.train.trainer import Trainer
+
+    torch.manual_seed(0)
+    network = make_network(cfg)
+    if state is not None:
+        network.load_state_dict(state, strict=True)
+    return Trainer(cfg, network, device)
+
+
+class ViewLog:
+    """A loader that notes each batch's view count."""
+
+    def __init__(self, loader):
+        self.loader, self.views = loader, []
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for batch in self.loader:
+            self.views.append(batch["src_views"]["rgb"].shape[1])
+            yield batch
+
+
+def phase_train_recipe():
+    """6a. The dtu_pretrain recipe: TRAIN_STEPS trainer steps at 512x640, B = 4,
+    on the synthetic loader (23.87 GiB at its peak on an 80 GB H100);
+    then one step of the worst case, V = 4.  Returns the trainer, its
+    config, its head's pack before training, and the numbers."""
+    import torch
+
+    from gdb_nerf_tpu_torch.datasets import make_data_loader
+    from gdb_nerf_tpu_torch.datasets.loader import collate
+    from gdb_nerf_tpu_torch.train.recorder import Recorder
+
+    B = DTU_PRETRAIN["train"]["batch_size"]
+    cfg = train_cfg((512, 640), B, TRAIN_STEPS)
+    trainer = make_trainer(cfg)
+    packed_before = trainer.network.nerf.packed_weights().clone()
+    recorder = Recorder(cfg)
+    loader = make_data_loader(cfg, is_train=True, max_iter=TRAIN_STEPS)
+    views = ViewLog(loader)
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_epoch(0, views, recorder)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = list(recorder.loss_stats["loss"].deque)
+    ms = list(trainer.step_ms)
+    smi = card()
+    for k, (loss, t, v) in enumerate(zip(losses, ms, views.views)):
+        print(f"[train] step {k}: V={v}, loss {loss:.6f}, {t:.2f} ms (CUDA events)")
+    timed = ms[1:]
+    print(f"[train] dtu_pretrain 512x640 B={B} float32, {len(ms)} steps: mean step "
+          f"{sum(timed) / len(timed):.2f} ms (first excluded; min {min(timed):.2f}, max "
+          f"{max(timed):.2f}), peak memory {peak:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated) on {smi}")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"train steps: {losses}")
+    ds = loader.dataset
+    if len(views.views) != len(ms):
+        raise AssertionError(f"{len(views.views)} batches for {len(ms)} steps")
+    torch.cuda.reset_peak_memory_stats()
+    stats = trainer.train_step(collate([ds[(i, 4, 1.0)] for i in range(B)]))
+    peak_v4 = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[train] one step at V=4 (the sampler's largest view count), B={B}: "
+          f"{trainer.step_ms[-1]:.2f} ms, loss {stats['loss']:.6f}, peak memory {peak_v4:.2f} GiB")
+    if not np.isfinite(stats["loss"]):
+        raise AssertionError("non-finite loss at V=4")
+    return trainer, cfg, packed_before, {
+        "batch_size": B, "steps": len(ms), "step_ms": timed, "peak_gib": peak,
+        "peak_gib_v4": peak_v4, "card": smi}
+
+
+def phase_overfit():
+    """6b. OVERFIT_STEPS steps on one 128x160 batch: the loss must fall."""
+    from gdb_nerf_tpu_torch.datasets import make_data_loader
+
+    cfg = train_cfg((128, 160), 4, OVERFIT_STEPS)
+    trainer = make_trainer(cfg)
+    batch = next(iter(make_data_loader(cfg, is_train=True, max_iter=1)))
+    losses = [trainer.train_step(batch)["loss"] for _ in range(OVERFIT_STEPS)]
+    print(f"[overfit] 128x160 B=4, {OVERFIT_STEPS} steps on one batch: loss "
+          + " ".join(f"{x:.5f}" for x in losses))
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"overfitting one batch did not lower the loss: {losses}")
+
+
+def phase_train_vs_cpu():
+    """6e. One step at 64x64 on the card and the same step on the CPU, from
+    the same weights and batch: the loss and every parameter's gradient."""
+    from gdb_nerf_tpu_torch.datasets import make_data_loader
+
+    cfg = train_cfg((64, 64), 1, 1)
+    gpu = make_trainer(cfg)
+    cpu = make_trainer(cfg, "cpu", {k: v.cpu() for k, v in gpu.network.state_dict().items()})
+    batch = next(iter(make_data_loader(cfg, is_train=True, max_iter=1)))
+    loss_gpu, loss_cpu = gpu.train_step(batch)["loss"], cpu.train_step(batch)["loss"]
+    if not next(gpu.network.parameters()).is_cuda or next(cpu.network.parameters()).is_cuda:
+        raise AssertionError("the two trainers are not on the card and the CPU")
+    gmax = max(float(q.grad.abs().max()) for q in cpu.network.parameters())
+    rows = []  # (share of the tolerance, relative L2, name, |g|)
+    for (k, p), q in zip(gpu.network.named_parameters(), cpu.network.parameters()):
+        a, b = p.grad.double().cpu(), q.grad.double()
+        d, g = float((a - b).norm()), float(b.norm())
+        tol = TRAIN_GRAD_RTOL * g + TRAIN_GRAD_FLOOR * gmax * b.numel() ** 0.5
+        rows.append((d / tol, d / max(g, 1e-30), k, g))
+    rows.sort()
+    for share, rel, k, g in rows[-3:]:
+        print(f"[train-vs-cpu] {k}: gradient relative L2 {rel:.3e} (|g| {g:.3e}), "
+              f"{100 * share:.1f} % of its tolerance")
+    loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    worst = max(r[1] for r in rows)
+    print(f"[train-vs-cpu] 64x64 B=1 float32 TF32 off: loss card {loss_gpu:.8f} cpu "
+          f"{loss_cpu:.8f} (relative {loss_err:.2e}, tolerance {TRAIN_LOSS_RTOL}); "
+          f"{len(rows)} gradients, worst relative L2 {worst:.2e}, the largest element "
+          f"{gmax:.3e}; every one within {TRAIN_GRAD_RTOL} relative L2 + {TRAIN_GRAD_FLOOR} "
+          f"of the largest element: {rows[-1][0] <= 1.0}")
+    if loss_err > TRAIN_LOSS_RTOL or rows[-1][0] > 1.0:
+        raise AssertionError("the card's train step disagrees with the CPU's")
+
+
+def phase_val(trainer, cfg, packed_before):
+    """6c. Trainer.val after 6a, through the bundle-head kernel, with its
+    launch count set to 0 before and read after; the head's pack refreshed
+    after the optimizer steps, and the kernel on the trained weights held to
+    the plain head at the first val request's inputs.  Returns the launches."""
+    import torch
+
+    from gdb_nerf_tpu_torch.datasets import make_data_loader
+    from gdb_nerf_tpu_torch.kernels.bundle_head import bundle_head_reference, pack_weights
+    from gdb_nerf_tpu_torch.runtime.registry import make_evaluator
+
+    head = trainer.network.nerf
+    inputs = []
+    hook = head.register_forward_pre_hook(lambda m, args: inputs.append(args[:3]) or None)
+    loader = make_data_loader(cfg, is_train=False)
+    head.kernel.launches = 0
+    result = trainer.val(0, loader, make_evaluator(cfg))
+    launches = head.kernel.launches
+    hook.remove()
+    print(f"[val] {len(loader)} requests at 512x640 after training: psnr {result['psnr']:.3f}, "
+          f"ssim {result['ssim']:.4f}; bundle-head kernel launches {launches}")
+    if launches != len(inputs) or launches < len(loader) or not np.isfinite(result["psnr"]):
+        raise AssertionError(f"val: {launches} launches for {len(inputs)} head calls, {result}")
+    if not trainer.network.training:
+        raise AssertionError("val left the network in eval mode")
+    packed = head.packed_weights()
+    if torch.equal(packed, packed_before) or not torch.equal(packed, pack_weights(head)):
+        raise AssertionError("the head's kernel pack did not follow the optimizer steps")
+    with torch.inference_mode():
+        vox, payload, frd = inputs[0]
+        sigma, feat = head.kernel.launch(packed, vox, payload, frd)
+        s_ref, f_ref = bundle_head_reference(head, vox, payload, frd)
+    ok = (bool(((sigma - s_ref).abs() <= F32_ATOL + F32_RTOL * s_ref.abs()).all())
+          and bool(((feat - f_ref).abs() <= F32_ATOL + F32_RTOL * f_ref.abs()).all()))
+    err = max((sigma - s_ref).abs().max().item(), (feat - f_ref).abs().max().item())
+    print(f"[val] kernel on the trained weights vs the plain head, N={vox.shape[0]}: max |d| "
+          f"{err:.3e} (atol {F32_ATOL}, rtol {F32_RTOL}); pack refreshed after the steps")
+    if not ok:
+        raise AssertionError("bundle-head kernel disagrees with the plain head on trained weights")
+    return launches
+
+
+def phase_evaluate(trainer, cfg):
+    """6d. run --type evaluate's path on 2 synthetic requests at 512x640,
+    from a checkpoint of the trained network.  Returns the kernel launches."""
+    from gdb_nerf_tpu_torch import run
+    from gdb_nerf_tpu_torch.datasets import samplers, synthetic
+    from gdb_nerf_tpu_torch.datasets.loader import DataLoader
+    from gdb_nerf_tpu_torch.utils.checkpoint import save_model
+
+    save_model(trainer.state_dict(), cfg.trained_model_dir, 0, last=True)
+    renderer = run.build_renderer(cfg)
+    requests = DataLoader(synthetic.Dataset(cfg, split="test", num_items=2),
+                          samplers.EnerfBatchSampler(samplers.SequentialSampler(2), 1, False,
+                                                     cfg.test.sampler_meta), num_workers=0)
+    kernel = renderer.network.nerf.kernel
+    kernel.launches = 0
+    result = run.evaluate(cfg, renderer, requests)
+    launches = kernel.launches
+    print(f"[evaluate] 2 requests: {result}; bundle-head kernel launches {launches}")
+    if launches != 2 or not np.isfinite(result["psnr"]):
+        raise AssertionError(f"evaluate: {launches} launches, {result}")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -678,15 +947,22 @@ def main() -> None:
     probes = phase_plane_ops(probe_kernels)
     rgb = phase_golden(g, sd)
     launches = phase_serve(g, sd, rgb)
+    trainer, cfg, packed_before, train = phase_train_recipe()
+    phase_overfit()
+    val_launches = phase_val(trainer, cfg, packed_before)
+    evaluate_launches = phase_evaluate(trainer, cfg)
+    phase_train_vs_cpu()
     kernels = [{
         "name": "bundle_head", "route": "cuda",
         "source": "gdb_nerf_tpu_torch/csrc/bundle_head.cu",
         "replaces": "gdb_nerf_tpu/ops/pallas/fused_nerf.py:89",
         "launches": launches, **k1,
+        "launches_val": val_launches, "launches_evaluate": evaluate_launches,
     }, *convs, *gathers, *probes]
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launch on its path")
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,12 @@
-"""Cascaded plane-sweep MVS depth estimation (eval path).
+"""Cascaded plane-sweep MVS depth estimation.
 
-Port of the eval branch of ``gdb_nerf_tpu/models/depth_net.py::DepthNet``:
-per stage a variance cost volume over depth (or disparity) hypotheses, a 3D
-U-Net, and a regressed depth with a confidence interval that seeds the next
-stage.  ``vol_range`` values exchanged between stages are metric depth.
-The training-only stage NeRFs are declared (``nerfs``) so reference
-checkpoints load strictly; their forward comes with the training path.
+Port of ``gdb_nerf_tpu/models/depth_net.py::DepthNet``: per stage a
+variance cost volume over depth (or disparity) hypotheses, a 3D U-Net, and
+a regressed depth with a confidence interval that seeds the next stage.
+``vol_range`` values exchanged between stages are metric depth.  In
+training every stage but the last also renders its full stage-resolution
+image with a small NeRF (``nerfs``), so that depth is supervised
+photometrically (``blend_rgbs``).
 """
 
 from __future__ import annotations
@@ -18,7 +19,46 @@ import torch.nn as nn
 from gdb_nerf_tpu_torch.models.cost_reg_net import CostRegNet, CostRegNetSmall
 from gdb_nerf_tpu_torch.models.nerf_head import StageNeRF
 from gdb_nerf_tpu_torch.ops import camera, cost_volume
+from gdb_nerf_tpu_torch.ops.bundles import l2norm
+from gdb_nerf_tpu_torch.ops.grid_sample import grid_sample_2d_nchw, grid_sample_3d_ncdhw
 from gdb_nerf_tpu_torch.ops.resize import resize_bilinear_nchw
+
+
+def _stage_sample_features(feat_volume, img_feat_rgb, world, uvd, src_exts, src_ints_stage,
+                           tar_exts):
+    """Voxel and per-view image features of the stage NeRF's samples.
+
+    Args:
+      feat_volume: (B, C, D, Hv, Wv) regularized volume.
+      img_feat_rgb: (B, V, F, Hf, Wf) per-view feature ++ rgb maps.
+      world: (B, N, S, 3) sample positions; uvd: (B, N, S, 3) normalized
+        volume coordinates.
+      src_exts (B, V, 4, 4), src_ints_stage (B, V, 3, 3) at feature
+        resolution; tar_exts (B, 4, 4).
+
+    Returns vox_feat (B, N, S, C) and feat_rgb_dir (V, B, N, S, F + 4).
+    """
+    B, V, _, Hf, Wf = img_feat_rgb.shape
+    N, S = world.shape[1:3]
+    vox_feat = grid_sample_3d_ncdhw(feat_volume, uvd, padding_mode="border")
+    tar_cam = camera.invert_extrinsics(tar_exts)[:, None, None, :3, 3]
+    pts = world.reshape(B, N * S, 3)
+    per_view = []
+    for v in range(V):
+        pix, depth, _ = camera.project_points(pts, src_exts[:, v], src_ints_stage[:, v])
+        # Samples behind the camera are pushed far outside (border-clamped).
+        bad = depth < 1e-8
+        gx = torch.where(bad, -99.0, 2.0 * pix[..., 0] / Wf - 1.0)
+        gy = torch.where(bad, -99.0, 2.0 * pix[..., 1] / Hf - 1.0)
+        feats = grid_sample_2d_nchw(img_feat_rgb[:, v], torch.stack([gx, gy], dim=-1),
+                                    padding_mode="border").reshape(B, N, S, -1)
+        cam = camera.invert_extrinsics(src_exts[:, v])[:, None, None, :3, 3]
+        tar_diff = l2norm(world - tar_cam)
+        src_diff = l2norm(world - cam)
+        direction = l2norm(tar_diff - src_diff)
+        dot = (tar_diff * src_diff).sum(dim=-1, keepdim=True)
+        per_view.append(torch.cat([feats, direction, dot], dim=-1))
+    return vox_feat, torch.stack(per_view)
 
 
 class DepthNet(nn.Module):
@@ -33,6 +73,7 @@ class DepthNet(nn.Module):
         voxel_dim: int = 8,
         num_depth: Sequence[int] = (64, 8),
         inv_depth: Sequence[bool] = (True, False),
+        num_samples: Sequence[int] = (8,),
         nerf_hidden_dims: int = 64,
         viewdir_agg: bool = True,
     ):
@@ -43,6 +84,7 @@ class DepthNet(nn.Module):
         self.ci_scales = tuple(ci_scales)
         self.num_depth = tuple(num_depth)
         self.inv_depth = tuple(inv_depth)
+        self.num_samples = tuple(num_samples)
         n = len(self.vol_levels)
         self.cost_regs = nn.ModuleList(
             [CostRegNetSmall(feat_dims[0], voxel_dim, base_channels)]
@@ -53,21 +95,25 @@ class DepthNet(nn.Module):
              for i in range(n - 1)]
         )
 
-    def forward(self, src_hw, ms_feats, src_exts, src_ints, tar_exts, tar_ints, near_far):
+    def forward(self, src_images, ms_feats, src_exts, src_ints, tar_exts, tar_ints, near_far,
+                train: bool = False):
         """Run the cascade.
 
         Args:
-          src_hw: (H, W) of the source images.
+          src_images: (B, V, 3, H, W) source images.
           ms_feats: FPN levels [(B, V, c, h, w)], coarsest first, in the
             compute dtype.
           src_exts (B, V, 4, 4), src_ints (B, V, 3, 3), tar_exts (B, 4, 4),
           tar_ints (B, 3, 3), near_far (B, 2).
+          train: render every stage but the last with its stage NeRF.
 
         Returns per-stage lists: depths (B, Hi, Wi); depth_ranges and
-        vol_ranges (B, 2, Hi, Wi) metric; volumes (B, voxel, D, Hi, Wi).
+        vol_ranges (B, 2, Hi, Wi) metric; volumes (B, voxel, D, Hi, Wi);
+        blend_rgbs (B, Hi, Wi, 3), the stage renders (train only, else []).
         """
-        H_orig, W_orig = src_hw
-        out = {"depths": [], "depth_ranges": [], "vol_ranges": [], "volumes": []}
+        B, V, _, H_orig, W_orig = src_images.shape
+        out = {"depths": [], "depth_ranges": [], "vol_ranges": [], "volumes": [],
+               "blend_rgbs": []}
         depth_range = near_far[:, :, None, None]
         for idx in range(len(self.vol_levels)):
             feats = ms_feats[self.vol_levels[idx]]
@@ -93,6 +139,46 @@ class DepthNet(nn.Module):
             out["volumes"].append(feat_volume)
             depth_range = ci
             if idx < len(self.vol_levels) - 1:
+                if train:
+                    hf, wf = feats.shape[-2:]
+                    small = resize_bilinear_nchw(src_images.reshape(B * V, 3, H_orig, W_orig),
+                                                 (hf, wf)).reshape(B, V, 3, hf, wf)
+                    out["blend_rgbs"].append(self._render_stage(
+                        idx, feat_volume, torch.cat([feats, small.to(feats.dtype)], dim=2),
+                        src_exts, src_ints_stage, tar_exts, tar_ints_stage, ci, vol_range,
+                    ))
                 up = self.vol_scales[idx + 1] / self.vol_scales[idx]
                 depth_range = resize_bilinear_nchw(ci, (int(Hi * up), int(Wi * up)))
         return out
+
+    def _render_stage(self, idx, feat_volume, img_feat_rgb, src_exts, src_ints_stage, tar_exts,
+                      tar_ints_stage, ci, vol_range):
+        """The stage-resolution image (B, Hi, Wi, 3) rendered by stage NeRF
+        ``idx``: S uniform samples inside each pixel's interval ``ci``, the
+        voxel and image features at them, and unnormalized alpha compositing."""
+        B, _, Hi, Wi = ci.shape
+        S = self.num_samples[idx]
+        inv = bool(self.inv_depth[idx])
+        rays_o, rays_d, _, _ = camera.build_rays(tar_exts, tar_ints_stage, Hi, Wi)
+        ray_near, ray_far = ci[:, 0].reshape(B, -1), ci[:, 1].reshape(B, -1)
+        vol_near, vol_far = vol_range[:, 0].reshape(B, -1), vol_range[:, 1].reshape(B, -1)
+        if inv:
+            ray_near, ray_far = 1.0 / ray_far, 1.0 / ray_near
+            vol_near, vol_far = 1.0 / vol_near, 1.0 / vol_far
+        steps = cost_volume.unit_steps(S + 1, ci.device, ci.dtype)
+        t_vals = ray_near[..., None] + (ray_far - ray_near)[..., None] * steps
+        z_vals = 0.5 * (t_vals[..., :-1] + t_vals[..., 1:])  # (B, N, S)
+        d = 2.0 * (z_vals - vol_near[..., None]) / (vol_far - vol_near)[..., None] - 1.0
+        x, y = camera.pixel_centers(Hi, Wi, ci.device, ci.dtype)
+        uv = torch.stack([(2.0 * x / Wi - 1.0).reshape(-1), (2.0 * y / Hi - 1.0).reshape(-1)], -1)
+        uvd = torch.cat([uv[None, :, None].expand(B, Hi * Wi, S, 2), d[..., None]], dim=-1)
+        z_metric = 1.0 / z_vals if inv else z_vals
+        world = rays_o[:, None, None] + rays_d.reshape(B, -1, 1, 3) * z_metric[..., None]
+        vox_feat, feat_rgb_dir = _stage_sample_features(
+            feat_volume, img_feat_rgb, world, uvd, src_exts, src_ints_stage, tar_exts)
+        sigma, rgb = self.nerfs[idx](vox_feat, feat_rgb_dir)
+        alpha = 1.0 - torch.exp(-sigma)  # (B, N, S)
+        trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
+        trans = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], dim=-1)
+        rgb_map = ((alpha * trans)[..., None] * rgb).sum(dim=-2)
+        return rgb_map.reshape(B, Hi, Wi, 3)

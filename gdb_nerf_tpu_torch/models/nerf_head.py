@@ -7,16 +7,24 @@ module's split denses are column blocks of these weights.  The names sit
 flat on the head (``nerf.view_fc.0.weight``), so ``ViewAggregator`` is the
 base class that owns the aggregation trunk.
 
-``BundleNeRF.forward`` goes through ``kernels.bundle_head``: the hand-written
-CUDA kernel for CUDA tensors, its plain PyTorch version for CPU tensors.
+``BundleNeRF.forward`` in eval goes through ``kernels.bundle_head``: the
+hand-written CUDA kernel for CUDA tensors, its plain PyTorch version for CPU
+tensors.  In training (``train=True``) it runs the plain version on any
+device, as autograd-tracked layers: the kernel has no backward.
+``StageNeRF`` is the training-only head of the MVS cascade's stage renders.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from gdb_nerf_tpu_torch.kernels.bundle_head import BundleHeadKernel, pack_weights
+from gdb_nerf_tpu_torch.kernels.bundle_head import (
+    BundleHeadKernel,
+    bundle_head_reference,
+    pack_weights,
+)
 
 
 class ViewAggregator(nn.Module):
@@ -79,18 +87,23 @@ class BundleNeRF(ViewAggregator):
             self._packed = (key, pack_weights(self))
         return self._packed[1]
 
-    def forward(self, vox: torch.Tensor, payload: torch.Tensor, feat_rgb_dir: torch.Tensor):
+    def forward(self, vox: torch.Tensor, payload: torch.Tensor, feat_rgb_dir: torch.Tensor,
+                train: bool = False):
         """Args: vox (N, voxel_dim); payload (V, N, P); feat_rgb_dir (V, N, F + 4),
-        all in one dtype.  Returns sigma (N,) float32 and feat (N, P + voxel_dim)
-        in the inputs' dtype."""
+        all in one dtype; ``train`` takes the differentiable plain version.
+        Returns sigma (N,) float32 and feat (N, P + voxel_dim) in the inputs'
+        dtype."""
+        if train:
+            return bundle_head_reference(self, vox, payload, feat_rgb_dir)
         return self.kernel(self, vox, payload, feat_rgb_dir)
 
 
 class StageNeRF(ViewAggregator):
-    """The training-only stage NeRF of the MVS cascade.
+    """The training-only RGB head that supervises an intermediate MVS stage.
 
-    Declared so that reference checkpoints load strictly; its forward comes
-    with the training path.
+    Port of ``gdb_nerf_tpu/models/nerf_head.py::StageNeRF``: the aggregation
+    trunk, density, and softmax view weights (``color`` over [x, vox, img,
+    per-view]) that blend the per-view RGB.
     """
 
     def __init__(self, hid_dim: int = 64, feat_dim: int = 32, voxel_dim: int = 8,
@@ -103,3 +116,18 @@ class StageNeRF(ViewAggregator):
             nn.Linear(hid_dim + voxel_dim + 16 + F + 4, hid_dim), nn.ReLU(),
             nn.Linear(hid_dim, 1), nn.ReLU(),
         )
+
+    def forward(self, vox: torch.Tensor, feat_rgb_dir: torch.Tensor):
+        """Args: vox (..., voxel_dim); feat_rgb_dir (V, ..., F + 4), float32.
+        Returns sigma (...,) and rgb (..., 3)."""
+        img_feat = self.aggregate(feat_rgb_dir)
+        vox_img = torch.cat([vox, img_feat], dim=-1)
+        x = self.lr0(vox_img)
+        sigma = self.sigma(x)[..., 0]
+        # color.0 over cat([x, vox_img] (shared), frd (per view)), split.
+        n_shared = x.shape[-1] + vox_img.shape[-1]
+        w0 = self.color[0].weight
+        shared = F.linear(torch.cat([x, vox_img], dim=-1), w0[:, :n_shared], self.color[0].bias)
+        h = torch.relu(shared + F.linear(feat_rgb_dir, w0[:, n_shared:]))
+        w = torch.softmax(self.color[3](self.color[2](h)), dim=0)
+        return sigma, (feat_rgb_dir[..., -7:-4] * w).sum(dim=0)

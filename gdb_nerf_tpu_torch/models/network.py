@@ -1,6 +1,6 @@
-"""Top-level GDB-NeRF network, eval forward: FPN -> MVS -> bundles -> decode.
+"""Top-level GDB-NeRF network: FPN -> MVS -> bundles -> decode.
 
-Port of the eval branch of ``gdb_nerf_tpu/models/network.py::Network``.
+Port of ``gdb_nerf_tpu/models/network.py::Network``.
 Submodule and parameter names are the reference's torch names, so a
 reference state dict (and the golden fixture's ``sd/*``) loads with
 ``load_state_dict(strict=True)``.
@@ -16,6 +16,11 @@ volumes) are sampled in float32 from their bf16 values.
 Layout at the boundary matches the JAX Network: the batch holds
 channels-last images ``src_views.rgb`` (B, V, H, W, 3), and ``rgb`` comes
 back as (B, H, W, 3).
+
+``forward(batch, train)``: ``train`` renders the MVS stages with their stage
+NeRFs and runs the bundle head as autograd-tracked layers (the CUDA kernel
+has no backward); without it, the head runs the kernel on CUDA tensors.
+BatchNorm follows the module's mode: batch statistics in ``.train()``.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ class Network(nn.Module):
         mvs_voxel_dim: int = 8,
         mvs_num_depth: Sequence[int] = (64, 8),
         mvs_inv_depth: Sequence[bool] = (True, False),
+        mvs_num_samples: Sequence[int] = (8,),
         bundle_size: int = 2,
         global_num_depth: int = 64,
         max_num_samples: int = 6,
@@ -89,6 +95,7 @@ class Network(nn.Module):
             voxel_dim=mvs_voxel_dim,
             num_depth=mvs_num_depth,
             inv_depth=mvs_inv_depth,
+            num_samples=mvs_num_samples,
             nerf_hidden_dims=nerf_hidden_dims,
             viewdir_agg=viewdir_agg,
         )
@@ -110,6 +117,7 @@ class Network(nn.Module):
             mvs_voxel_dim=cfg.mvs.voxel_dim,
             mvs_num_depth=tuple(cfg.mvs.num_depth),
             mvs_inv_depth=tuple(cfg.mvs.inv_depth),
+            mvs_num_samples=tuple(cfg.mvs.num_samples),
             bundle_size=cfg.nerf.bundle_size,
             global_num_depth=cfg.nerf.global_num_depth,
             max_num_samples=cfg.nerf.max_num_samples,
@@ -134,19 +142,22 @@ class Network(nn.Module):
                 return n
         return 1
 
-    def forward(self, batch: dict):
-        """Render the target view (eval).
+    def forward(self, batch: dict, train: bool = False):
+        """Render the target view.
 
         Args:
           batch: {'src_views': {'rgb': (B, V, H, W, 3), 'extrinsics':
             (B, V, 4, 4), 'intrinsics': (B, V, 3, 3)}, 'tar_views':
             {'extrinsics': (B, 4, 4), 'intrinsics': (B, 3, 3)},
             'near_far': (B, 2)}, float32 tensors on one device.
+          train: stage-NeRF renders and the differentiable head.
 
         Returns:
           ret: {'rgb': (B, H, W, 3), 'nerf_depth': (B, H, W), 'mvs_depth':
             (B, H/b, W/b), 'opacity': (B, H, W)}, float32.
           mvs_depths: the per-stage MVS depths.
+          blend_rgbs: the per-stage stage-NeRF renders (B, Hi, Wi, 3), train
+            only, else [].
         """
         b = self.bundle_size
         dt = self.compute_dtype
@@ -166,7 +177,8 @@ class Network(nn.Module):
 
         # 2. Cascaded MVS.
         mvs = self.depth_net(
-            (H_orig, W_orig), ms_feats, src_exts, src_ints, tar_exts, tar_ints, near_far
+            src_nchw.reshape(B, V, 3, H_orig, W_orig), ms_feats, src_exts, src_ints, tar_exts,
+            tar_ints, near_far, train,
         )
         depth_range = mvs["depth_ranges"][-1]
         vol_range = mvs["vol_ranges"][-1]
@@ -201,7 +213,7 @@ class Network(nn.Module):
             rb_c = rb._replace(bundle_d=rb.bundle_d[:, sl], uv=rb.uv[sl], cos=rb.cos[:, sl])
             outs.append(self._render_rows(
                 rb_c, depth_range[:, :, sl], vol_range[:, :, sl], src_images, pyramid,
-                feat_volume, src_exts, src_ints, inv,
+                feat_volume, src_exts, src_ints, inv, train,
             ))
         feat_map, depth_map, opacity = (torch.cat(t, dim=1) for t in zip(*outs))
         nerf_depth = 1.0 / depth_map if inv else depth_map
@@ -218,10 +230,10 @@ class Network(nn.Module):
             img = 0.5 * (img + rgb_f)
         maps = resize_bilinear_nchw(torch.stack([nerf_depth, opacity], dim=1), (H_orig, W_orig))
         ret = {"rgb": img, "nerf_depth": maps[:, 0], "mvs_depth": mvs_depth, "opacity": maps[:, 1]}
-        return ret, mvs["depths"]
+        return ret, mvs["depths"], mvs["blend_rgbs"]
 
     def _render_rows(self, rb, depth_range, vol_range, src_images, pyramid, feat_volume,
-                     src_exts, src_ints, inv):
+                     src_exts, src_ints, inv, train):
         """Sample, encode, run the NeRF head and composite one slab of bundle
         rows.  Returns feat_map (B, Hc, W, C) float32, depth_map and opacity
         (B, Hc, W)."""
@@ -245,7 +257,7 @@ class Network(nn.Module):
 
         sigma, feat = self.nerf(
             enc.vox_feat.reshape(-1, enc.vox_feat.shape[-1]).contiguous(),
-            per_view(payload), per_view(frd),
+            per_view(payload), per_view(frd), train,
         )
         sigma = sigma.reshape(B, Hc, W, S)
         feat = feat.reshape(B, Hc, W, S, -1)

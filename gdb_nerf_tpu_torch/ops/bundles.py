@@ -62,7 +62,7 @@ class EncodedSamples(NamedTuple):
     vox_feat: torch.Tensor  # (B, H, W, S, C) cost-volume features
 
 
-def _l2norm(x: torch.Tensor) -> torch.Tensor:
+def l2norm(x: torch.Tensor) -> torch.Tensor:
     return x / torch.clamp_min(torch.linalg.vector_norm(x, dim=-1, keepdim=True), 1e-12)
 
 
@@ -194,7 +194,7 @@ def encode_samples(
     src_cam_xyz = camera.invert_extrinsics(src_exts)[..., :3, 3]  # (B, V, 3)
     src_ints_scaled = camera.scale_intrinsics(src_ints, 1.0 / b_size)
     src_pix_radius = camera.pixel_radius(src_ints_scaled)  # (B, V)
-    tar_diff = _l2norm(bundle_d)[:, None, :, :, None, :]  # (B, 1, H, W, 1, 3)
+    tar_diff = l2norm(bundle_d)[:, None, :, :, None, :]  # (B, 1, H, W, 1, 3)
 
     R = src_exts[..., :3, :3]  # (B, V, 3, 3)
     t = src_exts[..., :3, 3]
@@ -242,7 +242,7 @@ def encode_samples(
     src_diff = (bundle_xyz[:, None] - src_cam_xyz[:, :, None, None, None]) / torch.clamp_min(
         dist, 1e-12
     )[..., None]
-    direction = _l2norm(tar_diff - src_diff)
+    direction = l2norm(tar_diff - src_diff)
     dot = (tar_diff * src_diff).sum(-1, keepdim=True)
     ray_diff = torch.cat([direction, dot], dim=-1)
     return EncodedSamples(rgbs, mip_feat, ray_diff, vox_feat)

@@ -21,19 +21,23 @@ def get_depth_values(near_far: torch.Tensor, num_depth: int, inv_depth: bool) ->
     """Uniform hypotheses (B, D, H, W) between near and far (B, 2, H, W).
 
     With ``inv_depth`` the values are disparities (decreasing along D).
-    Steps are ``i * (1 / (D - 1))`` with an exact 1 at the end, which is
-    how XLA evaluates the reference's ``jnp.linspace(0, 1, D)``.
+    Steps are ``unit_steps``.
     """
     near = near_far[:, 0:1]
     far = near_far[:, 1:2]
     if inv_depth:
         near = 1.0 / near
         far = 1.0 / far
-    steps = torch.arange(num_depth, device=near.device, dtype=near.dtype) * (
-        1.0 / max(num_depth - 1, 1)
-    )
-    steps[-1].fill_(1.0)  # fill_: assigning a Python float would sync with the device
+    steps = unit_steps(num_depth, near.device, near.dtype)
     return near + (far - near) * steps[:, None, None]
+
+
+def unit_steps(n: int, device=None, dtype=torch.float32) -> torch.Tensor:
+    """``n`` uniform steps from 0 to 1 as XLA evaluates ``jnp.linspace(0, 1, n)``:
+    ``i * (1 / (n - 1))``, with an exact 1 at the end."""
+    steps = torch.arange(n, device=device, dtype=dtype) * (1.0 / max(n - 1, 1))
+    steps[-1].fill_(1.0)  # fill_: assigning a Python float would sync with the device
+    return steps
 
 
 def warp_src_to_volume(

@@ -55,7 +55,8 @@ class Renderer:
     def render(self, dev_batch: dict):
         """One eval forward on an already-transferred batch -> (ret, mvs_depths)."""
         with torch.inference_mode():
-            return self.network(dev_batch)
+            ret, mvs_depths, _ = self.network(dev_batch)
+        return ret, mvs_depths
 
     def render_timed(self, dev_batch: dict):
         """``render`` plus its latency -> (out, ms, enqueue_ms).

@@ -1,0 +1,97 @@
+"""The training step: forward, loss, backward, clip, optimizer and LR step.
+
+Port of ``gdb_nerf_tpu/train/step.py`` on one device (data parallelism is
+a later item).  The loss mirrors the reference's: a photometric (MSE +
+SSIM + VGG) loss on the final image plus photometric losses on each
+intermediate MVS stage's render, weighted by ``mvs.loss_weight``.  The
+stats dict has the JAX step's keys, with the Smooth-L1 depth errors
+(``depth_loss{i}``) computed without gradient, for monitoring only.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gdb_nerf_tpu_torch.train import losses
+from gdb_nerf_tpu_torch.train.optim import CLIP_VALUE
+
+
+def to_device_train(batch: dict, device) -> dict:
+    """Device-side slice of a training batch (inputs + supervision), float32."""
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32)).to(device)
+
+    sv, tv = batch["src_views"], batch["tar_views"]
+    out = {
+        "src_views": {k: t(sv[k]) for k in ("rgb", "extrinsics", "intrinsics")},
+        "tar_views": {k: t(tv[k]) for k in ("extrinsics", "intrinsics")},
+        "near_far": t(batch["near_far"]),
+        "tar_rgb": t(tv["rgb"]),
+        "tar_gt_rgb_ms": [t(r) for r in batch["tar_gt_ms"]["rgb"]],
+    }
+    # Ground-truth depth (DTU only): carried for monitoring-only stats.
+    if "depth" in batch["tar_gt_ms"]:
+        out["tar_gt_depth_ms"] = [t(d) for d in batch["tar_gt_ms"]["depth"]]
+        out["tar_gt_mask_ms"] = [t(m) for m in batch["tar_gt_ms"]["mask"]]
+    return out
+
+
+def make_loss_fn(network, loss_weight, use_perceptual: bool = True):
+    """``loss_fn(batch) -> (loss, stats)`` on a ``to_device_train`` batch;
+    the forward runs with ``train=True``."""
+    weights = (1.0, 0.1, 0.05 if use_perceptual else 0.0)
+
+    def loss_fn(batch):
+        ret, mvs_depths, blend_rgbs = network(
+            {k: batch[k] for k in ("src_views", "tar_views", "near_far")}, train=True)
+        color_loss, mse, ssim_v, perc = losses.photometric_loss(batch["tar_rgb"], ret["rgb"],
+                                                                weights)
+        depth_loss = 0.0
+        for i, blend in enumerate(blend_rgbs):
+            dl, _, _, _ = losses.photometric_loss(batch["tar_gt_rgb_ms"][i], blend, weights)
+            depth_loss = depth_loss + loss_weight[i] * dl
+        loss = color_loss + depth_loss
+        stats = {
+            "loss": loss,
+            "mse_loss": mse,
+            "psnr": -10.0 * torch.log10(mse + 1e-6),
+            "ssim": ssim_v,
+            "perceptual_loss": perc,
+            "depth_loss": depth_loss,
+        }
+        if "tar_gt_depth_ms" in batch:
+            with torch.no_grad():
+                _, dstats = losses.smooth_l1_depth(
+                    mvs_depths, batch["tar_gt_depth_ms"], batch["tar_gt_mask_ms"],
+                    [1.0] * len(mvs_depths))
+            stats.update(dstats)
+        return loss, {k: torch.as_tensor(v).detach() for k, v in stats.items()}
+
+    return loss_fn
+
+
+def make_train_step(network, optimizer, scheduler, loss_weight, use_perceptual: bool = True):
+    """``step(batch) -> stats``: one update of ``network``'s parameters.
+
+    Every parameter takes part in the update: one that the loss does not
+    reach (the FPN's full-resolution head at bundle size 2) gets a zero
+    gradient, as under optax, so that a weight decay reaches it too."""
+    loss_fn = make_loss_fn(network, loss_weight, use_perceptual)
+    params = [p for p in network.parameters() if p.requires_grad]
+
+    def step(batch):
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            else:
+                p.grad.zero_()
+        loss, stats = loss_fn(batch)
+        loss.backward()
+        torch.nn.utils.clip_grad_value_(params, CLIP_VALUE)
+        optimizer.step()
+        scheduler.step()
+        return stats
+
+    return step

@@ -1,13 +1,17 @@
 """Boundaries of the PyTorch port: no jax, the smoke's config, the CPU path.
 
 * Every module of ``gdb_nerf_tpu_torch`` imports (in a fresh interpreter),
-  and the port's CLI loader runs on the CPU, without pulling jax, flax or
-  the JAX package (``gdb_nerf_tpu``) into ``sys.modules``; no source of the
-  port names either in an import.
+  the training CLI ``train_net``, ``train/*``, ``eval/*``, ``utils/img`` and
+  ``utils/checkpoint`` among them, and the port's CLI loader and one train
+  step run on the CPU, without pulling jax, flax or the JAX package
+  (``gdb_nerf_tpu``) into ``sys.modules``; no source of the port names
+  either in an import.
 * ``chip_smoke.py`` imports neither jax nor the JAX package: its dtu_eval
   config literal equals ``load_cfg("configs/dtu_eval.yaml")`` in every
-  section the network reads, and its synthetic requests equal the
-  synthetic loader, bit for bit: the JAX package's and the port's own.
+  section the network reads, its dtu_pretrain literal equals
+  ``load_cfg("configs/dtu_pretrain.yaml")`` in every section the trainer
+  reads, and its synthetic requests equal the synthetic loader, bit for
+  bit: the JAX package's and the port's own.
 * The kernel wrapper takes the plain path for CPU tensors, leaving its
   launch counter at 0, and never falls back for tensors off the CPU.
 * The A/B tools (``tools/ab_bundle_head.py`` for K1,
@@ -48,6 +52,19 @@ def test_port_imports_no_jax():
         "'[16, 24]', 'train.num_workers', '0'])\n"
         "batches = list(make_data_loader(cfg, is_train=False))\n"
         "assert len(batches) == 8, len(batches)\n"
+        "import torch\n"
+        "from gdb_nerf_tpu_torch.runtime.registry import make_network\n"
+        "from gdb_nerf_tpu_torch.train.trainer import Trainer\n"
+        "cfg = load_cfg('configs/dtu_pretrain.yaml', ['synthetic', 'True', 'synthetic_hw', "
+        "'[64, 64]', 'train.num_workers', '0', 'train.batch_size', '1', 'mvs.num_depth', "
+        "'[16, 8]'])\n"
+        "batch = next(iter(make_data_loader(cfg, is_train=True, max_iter=1)))\n"
+        "assert torch.isfinite(torch.tensor(Trainer(cfg, make_network(cfg), 'cpu')"
+        ".train_step(batch)['loss']))\n"
+        "want = {'gdb_nerf_tpu_torch.' + m for m in ('train_net', 'train.losses', "
+        "'train.optim', 'train.recorder', 'train.step', 'train.trainer', 'eval.metrics', "
+        "'eval.evaluator', 'utils.img', 'utils.checkpoint')}\n"
+        "assert want <= set(mods), want - set(mods)\n"
         f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
@@ -55,7 +72,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 30  # every module of the port was imported
+    assert int(out.stdout.split()[-1]) >= 40  # every module of the port was imported
 
 
 def _imported_names(path: str) -> list[str]:
@@ -93,6 +110,19 @@ def test_smoke_config_literal_equals_yaml():
     for key, value in chip_smoke.DTU_EVAL.items():
         assert cfg[key] == value, key
     assert _as_dict(chip_smoke.namespace(chip_smoke.DTU_EVAL)) == chip_smoke.DTU_EVAL
+
+
+def test_smoke_pretrain_literal_equals_yaml():
+    """Both packages' load_cfg of dtu_pretrain.yaml, each section whole."""
+    from gdb_nerf_tpu_torch.config import load_cfg as port_load_cfg
+
+    path = os.path.join(REPO, "configs", "dtu_pretrain.yaml")
+    for cfg in (_as_dict(load_cfg(path)), _as_dict(port_load_cfg(path))):
+        for key, value in chip_smoke.DTU_PRETRAIN.items():
+            assert cfg[key] == value, key
+    cfg = chip_smoke.train_cfg((64, 64), 2, 3)
+    assert (cfg.train.batch_size, cfg.ep_iter, cfg.synthetic_hw) == (2, 3, [64, 64])
+    assert cfg.nerf.max_num_samples == 6 and not cfg.nerf.is_adaptive
 
 
 def test_smoke_requests_equal_the_synthetic_loader():

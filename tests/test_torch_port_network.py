@@ -52,7 +52,7 @@ def test_port_matches_golden_render_at_dtu_eval_widths():
         "tar_views": {"extrinsics": g["batch/tar_ext"], "intrinsics": g["batch/tar_int"]},
         "near_far": g["batch/near_far"],
     })
-    ret, _ = net(batch)
+    ret, _, _ = net(batch)
     assert net.nerf.kernel.launches == 0  # CPU tensors take the plain path
     rgb = np.clip(ret["rgb"].numpy(), 0.0, 1.0)
     agree = psnr(rgb, np.clip(g["golden/rgb"], 0.0, 1.0))
@@ -122,7 +122,7 @@ def assert_port_matches_jax_network(rng, batch, **kw):
 
     net = Network(**kw).eval()
     net.load_state_dict(state_dict_from_jax(variables), strict=True)
-    ret, _ = net(torch_batch(batch))
+    ret, _, _ = net(torch_batch(batch))
 
     agree = psnr(ret["rgb"].numpy(), ret_j["rgb"])
     assert agree >= 60.0, f"rgb agreement {agree:.1f} dB vs the JAX Network"
@@ -168,8 +168,8 @@ def test_bf16_network_casts_its_feature_path_once(rng):
     assert {k for k, dt in floats.items() if dt == torch.float32} == expect_fp32
     assert all(dt == torch.bfloat16 for k, dt in floats.items() if k not in expect_fp32)
     batch = torch_batch(small_batch(rng))
-    ret32, _ = net32(batch)
-    ret16, _ = net16(batch)
+    ret32, _, _ = net32(batch)
+    ret16, _, _ = net16(batch)
     for key, v in ret16.items():
         assert v.dtype == torch.float32 and torch.isfinite(v).all(), key
     agree = psnr(ret16["rgb"].numpy(), ret32["rgb"].numpy())
