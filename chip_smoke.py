@@ -72,8 +72,21 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      requests from a checkpoint of (a), its launch count read the same way;
      (e) one step at 64x64 on the card against the same step on the CPU
      (loss and every parameter's gradient);
-  7. one JSON line of the training numbers, one of kernel results (the
-     bundle head's with its launches in 6c and 6d), then the JSON result line.
+  7. data parallelism (configs/dtu_pretrain.yaml at 512x640, float32, TF32
+     off, one fixed batch of B = 4, V = 3 from seeded weights): (a) one step
+     in one process, then two ranks of this script on the one card over
+     gloo (``--rank-of``, torchrun's environment), each taking the step on
+     half the batch, held to the one-process step (loss, every gradient,
+     the parameters and BatchNorm statistics after it), with each rank's
+     step time, peak memory and the time of its gradient all-reduce alone;
+     (b) one step through the same code over nccl in a world of one, held
+     the same way (and (a) over nccl, one rank a card, where there are two
+     cards); (c) on the same two ranks, ShardedRenderer on the golden batch
+     in float32 and bf16, each rank's rows through the bundle-head kernel
+     (its launches counted on each rank), held to the unsharded render;
+  8. one JSON line of the training numbers, one of phase 7's, one of kernel
+     results (the bundle head's with its launches in 6c, 6d and 7c), then
+     the JSON result line.
 
 Needs one CUDA device, nvcc, torch and numpy; no network, no yaml, and
 nothing of jax or of the JAX package (gdb_nerf_tpu): the config literal and
@@ -741,9 +754,9 @@ def train_cfg(hw, batch_size: int, ep_iter: int) -> SimpleNamespace:
     })
 
 
-def make_trainer(cfg, device="cuda", state=None):
+def make_trainer(cfg, device="cuda", state=None, group=None):
     """A trainer of a network initialized from torch's generator seeded
-    with 0 (or loaded with ``state``)."""
+    with 0 (or loaded with ``state``), data-parallel over ``group``."""
     import torch
 
     from gdb_nerf_tpu_torch.runtime.registry import make_network
@@ -753,7 +766,7 @@ def make_trainer(cfg, device="cuda", state=None):
     network = make_network(cfg)
     if state is not None:
         network.load_state_dict(state, strict=True)
-    return Trainer(cfg, network, device)
+    return Trainer(cfg, network, device, group=group)
 
 
 class ViewLog:
@@ -932,8 +945,351 @@ def phase_evaluate(trainer, cfg):
     return launches
 
 
+# Phase 7: the data-parallel step and the row-sharded render.  7a holds
+# the 2-rank step to the one-process step with phase 6e's rule, but with
+# the FPN's and the cost-regularization U-Nets' gradients (PARALLEL_SENSITIVE)
+# at PARALLEL_SENSITIVE_RTOL: they move with the order of float32 sums alone
+# (the CPU's 64x64 case, 2 threads against 1: 2.1e-2,
+# tests/test_torch_port_parallel.py), grid_sample's backward adds its
+# atomics in no fixed order, and the FPN's first layers came 8.7e-4 apart,
+# 84 % of 1e-3, in a run on an NVIDIA H100 80GB HBM3.  The loss within
+# PARALLEL_LOSS_RTOL relative; at most PARALLEL_PARAMS_APART of the
+# parameters' elements more than 1e-6 from the other's after the step:
+# adam's first step moves an element by about lr * sign(g), so an element
+# whose gradient lies below the two runs' rounding difference lands 2 lr
+# away (0.82-1.17 % of them in runs on an NVIDIA H100 80GB HBM3), while a
+# step at another LR moves every element whose gradient is above adam's eps;
+# the BatchNorm statistics within PARALLEL_BN_ATOL.  7c holds the float32 render within
+# SHARDED_F32_ATOL of the unsharded one (tests/test_sharded_infer.py's bound)
+# (absolute and relative, as np.testing.assert_allclose there) and bf16 at
+# SHARDED_BF16_DB or more.
+PARALLEL_WORLD = 2
+PARALLEL_BATCH, PARALLEL_VIEWS = 4, 3
+PARALLEL_SENSITIVE, PARALLEL_SENSITIVE_RTOL = ("feature_net.", "depth_net.cost_regs."), 1e-2
+PARALLEL_LOSS_RTOL, PARALLEL_BN_ATOL = 1e-5, 1e-5
+PARALLEL_PARAMS_APART = 0.03
+SHARDED_F32_ATOL, SHARDED_BF16_DB = 1e-5, 60.0
+PARALLEL_TIMEOUT = 600  # seconds for the ranks of one launch
+
+
+def parallel_dir() -> str:
+    return os.path.join(REPO, "build", "smoke_parallel")
+
+
+def items(tree, sl):
+    """The items ``sl`` of every array of a loader batch (other leaves as
+    they are)."""
+    if isinstance(tree, dict):
+        return {k: items(v, sl) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [items(v, sl) for v in tree]
+    return tree[sl] if isinstance(tree, np.ndarray) and tree.ndim else tree
+
+
+def step_record(trainer, stats) -> dict:
+    """What phase 7 compares of a trainer after one step, on the host."""
+    import torch
+
+    return {"stats": stats, "ms": trainer.step_ms[-1],
+            "peak_gib": torch.cuda.max_memory_allocated(trainer.device) / 2**30,
+            "grads": {k: p.grad.detach().cpu() for k, p in trainer.network.named_parameters()},
+            "state": {k: v.detach().cpu() for k, v in trainer.network.state_dict().items()}}
+
+
+def free_cuda() -> None:
+    """Return the cached blocks of what the caller has deleted to the card."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_parallel_single():
+    """7a, first: one step of one process at dtu_pretrain 512x640, B = 4,
+    V = 3, from seeded weights on one fixed batch of the synthetic loader;
+    the weights and the batch are written for the ranks.  Returns the
+    step's record."""
+    import torch
+
+    from gdb_nerf_tpu_torch.datasets import make_data_loader
+    from gdb_nerf_tpu_torch.datasets.loader import collate
+
+    cfg = train_cfg((512, 640), PARALLEL_BATCH, 1)
+    trainer = make_trainer(cfg)
+    ds = make_data_loader(cfg, is_train=True, max_iter=1).dataset
+    batch = collate([ds[(i, PARALLEL_VIEWS, 1.0)] for i in range(PARALLEL_BATCH)])
+    os.makedirs(parallel_dir(), exist_ok=True)
+    torch.save({"state": {k: v.detach().cpu() for k, v in trainer.network.state_dict().items()},
+                "batch": batch}, os.path.join(parallel_dir(), "case.pt"))
+    torch.cuda.reset_peak_memory_stats()
+    record = step_record(trainer, trainer.train_step(batch))
+    print(f"[parallel] one process, B={PARALLEL_BATCH} V={PARALLEL_VIEWS} 512x640: loss "
+          f"{record['stats']['loss']:.8f}, {record['ms']:.2f} ms, "
+          f"peak {record['peak_gib']:.2f} GiB")
+    del trainer
+    free_cuda()
+    return record
+
+
+def rank_main(out_dir: str) -> None:
+    """One rank of phase 7, started by ``spawn_ranks`` with torchrun's
+    environment: 7a's step on this rank's half of the batch and the time of
+    its gradient all-reduce alone, then 7c's sharded render of the golden
+    batch in float32 and bf16 with the bundle-head kernel's launches."""
+    import torch
+    import torch.distributed as dist
+
+    from gdb_nerf_tpu_torch.parallel import ShardedRenderer, hosts
+    from gdb_nerf_tpu_torch.parallel.collectives import all_reduce_mean_
+    from gdb_nerf_tpu_torch.runtime.registry import make_network
+
+    device = hosts.maybe_initialize_distributed("cuda")
+    group, rank = hosts.default_group(), hosts.rank()
+    out = {"device": str(device), "backend": dist.get_backend(group)}
+    case = torch.load(os.path.join(parallel_dir(), "case.pt"), weights_only=False)
+    share = PARALLEL_BATCH // PARALLEL_WORLD
+    cfg = train_cfg((512, 640), share, 1)
+    trainer = make_trainer(cfg, device, case["state"], group)
+    torch.cuda.reset_peak_memory_stats(device)
+    half = items(case["batch"], slice(rank * share, (rank + 1) * share))
+    out["step"] = step_record(trainer, trainer.train_step(half))
+    grads = [p.grad.clone() for p in trainer.network.parameters()]
+    trainer.train_step(half)  # warm: the first step of a process loads its kernels
+    out["warm_ms"] = trainer.step_ms[-1]
+    times = []  # host clock between two syncs: gloo waits on the host
+    for _ in range(5):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        all_reduce_mean_(grads, group)
+        torch.cuda.synchronize(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["allreduce_ms"] = times
+    out["allreduce_numel"] = sum(g.numel() for g in grads)
+    del trainer, grads
+    free_cuda()
+    g, sd = golden_state_dict()
+    out["render"] = {}
+    for dt in ("float32", "bfloat16"):
+        network = make_network(namespace({**DTU_EVAL, "compute_dtype": dt}))
+        network.load_state_dict(sd, strict=True)
+        renderer = ShardedRenderer(network, device, group)
+        batch = golden_batch(g, device)
+        network.nerf.kernel.launches = 0
+        (ret, _), first_ms, _ = renderer.render_timed(batch)
+        _, ms, _ = renderer.render_timed(batch)
+        out["render"][dt] = {"ret": {k: v.float().cpu() for k, v in ret.items()}, "ms": ms,
+                             "first_ms": first_ms, "launches": network.nerf.kernel.launches}
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    hosts.shutdown()
+
+
+def spawn_ranks(tag: str, visible: str | None) -> list:
+    """Start PARALLEL_WORLD ranks of this script (``--rank-of``) with
+    torchrun's environment on one host, wait for all, print their output,
+    and return their records; fails if any rank fails.  ``visible`` sets
+    CUDA_VISIBLE_DEVICES (one card for all ranks: gloo)."""
+    import torch
+
+    out_dir = os.path.join(parallel_dir(), tag)
+    os.makedirs(out_dir, exist_ok=True)
+    port = free_port()
+    procs = []
+    try:
+        for rank in range(PARALLEL_WORLD):
+            env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+                   "WORLD_SIZE": str(PARALLEL_WORLD), "RANK": str(rank), "LOCAL_RANK": str(rank),
+                   "LOCAL_WORLD_SIZE": str(PARALLEL_WORLD)}
+            if visible is not None:
+                env["CUDA_VISIBLE_DEVICES"] = visible
+            log = open(os.path.join(out_dir, f"rank{rank}.log"), "w")
+            procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                            "--rank-of", out_dir], env=env, stdout=log,
+                                           stderr=subprocess.STDOUT), log))
+        deadline = time.time() + PARALLEL_TIMEOUT
+        codes = []
+        for proc, _ in procs:
+            try:
+                codes.append(proc.wait(timeout=max(deadline - time.time(), 1)))
+            except subprocess.TimeoutExpired:
+                codes.append("timeout")
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    for rank in range(PARALLEL_WORLD):
+        with open(os.path.join(out_dir, f"rank{rank}.log")) as f:
+            for line in f.read().splitlines()[-40:]:
+                print(f"[{tag} rank {rank}] {line}")
+    if codes != [0] * PARALLEL_WORLD:
+        raise AssertionError(f"phase 7 {tag}: the ranks exited with {codes}")
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+            for r in range(PARALLEL_WORLD)]
+
+
+def compare_steps(label: str, got: dict, want: dict) -> dict:
+    """Phase 6e's rule on the gradients (PARALLEL_SENSITIVE's at
+    PARALLEL_SENSITIVE_RTOL), the loss within PARALLEL_LOSS_RTOL, at most
+    PARALLEL_PARAMS_APART of the parameters' elements more than 1e-6 apart
+    after the step and the BatchNorm statistics within PARALLEL_BN_ATOL.
+    Returns the worst numbers; fails past any bound."""
+    import torch
+
+    loss_err = abs(got["stats"]["loss"] - want["stats"]["loss"]) / abs(want["stats"]["loss"])
+    gmax = max(float(g.abs().max()) for g in want["grads"].values())
+    rows = []  # (share of the tolerance, relative L2, name)
+    for k, b in want["grads"].items():
+        a, b = got["grads"][k].double(), b.double()
+        d, n = float((a - b).norm()), float(b.norm())
+        rtol = PARALLEL_SENSITIVE_RTOL if k.startswith(PARALLEL_SENSITIVE) else TRAIN_GRAD_RTOL
+        rows.append((d / (rtol * n + TRAIN_GRAD_FLOOR * gmax * b.numel() ** 0.5),
+                     d / max(n, 1e-30), k))
+    rows.sort()
+    param_err, moved, total, bn_err = 0.0, 0, 0, 0.0
+    for k, b in want["state"].items():
+        a = got["state"][k]
+        if k in want["grads"]:
+            diff = (a.double() - b.double()).abs()
+            param_err = max(param_err, float(diff.max()))
+            moved, total = moved + int((diff > 1e-6).sum()), total + diff.numel()
+        elif b.is_floating_point():
+            bn_err = max(bn_err, float((a - b).abs().max()))
+        elif not torch.equal(a, b):
+            raise AssertionError(f"{label}: {k} differs")
+    for share, rel, k in rows[-3:]:
+        print(f"[parallel] {label}: {k} gradient relative L2 {rel:.2e}, "
+              f"{100 * share:.1f} % of its tolerance")
+    print(f"[parallel] {label}: loss {got['stats']['loss']:.8f} against "
+          f"{want['stats']['loss']:.8f} (relative {loss_err:.2e}); parameters after the step: "
+          f"{moved} of {total} more than 1e-6 apart ({100 * moved / total:.3f} %, bound "
+          f"{100 * PARALLEL_PARAMS_APART:.0f} %), within {param_err:.2e}; BatchNorm "
+          f"statistics within {bn_err:.2e}")
+    if (loss_err > PARALLEL_LOSS_RTOL or rows[-1][0] > 1.0
+            or moved > PARALLEL_PARAMS_APART * total or bn_err > PARALLEL_BN_ATOL):
+        raise AssertionError(f"{label}: the data-parallel step disagrees with one process")
+    return {"loss_rel_err": loss_err, "worst_grad_share": rows[-1][0],
+            "worst_grad_rel_l2": rows[-1][1], "worst_grad": rows[-1][2],
+            "param_max_abs": param_err, "params_apart": moved, "bn_abs_err": bn_err}
+
+
+def phase_parallel(single: dict) -> dict:
+    """7a: two gloo ranks on one card, each half of the batch, against the
+    one-process step; 7b: one step through the same code over nccl in a
+    world of one (and 7a over nccl, a rank a card, where there are two
+    cards); 7c: the sharded render against the unsharded one, through the
+    bundle-head kernel on every rank.  Returns the numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from gdb_nerf_tpu_torch.parallel import hosts
+
+    t0 = time.time()
+    ranks = spawn_ranks("gloo", visible="0")
+    result = {"card": card(), "world": PARALLEL_WORLD, "backend": ranks[0]["backend"]}
+    if {r["backend"] for r in ranks} != {"gloo"} or {r["device"] for r in ranks} != {"cuda:0"}:
+        raise AssertionError(f"7a: ranks on {[(r['backend'], r['device']) for r in ranks]}")
+    for rank, r in enumerate(ranks):
+        ar = sorted(r["allreduce_ms"])
+        print(f"[parallel] 7a rank {rank} ({r['backend']}, {r['device']}): step "
+              f"{r['step']['ms']:.2f} ms (CUDA events; the process's first), a second step "
+              f"{r['warm_ms']:.2f} ms, peak memory {r['step']['peak_gib']:.2f} GiB; "
+              f"gradient all-reduce alone ({r['allreduce_numel']} floats) median "
+              f"{ar[len(ar) // 2]:.2f} ms (min {ar[0]:.2f}, max {ar[-1]:.2f})")
+    for k, v in ranks[0]["step"]["state"].items():
+        if not torch.equal(v, ranks[1]["step"]["state"][k]):
+            raise AssertionError(f"7a: the replicas differ after the step at {k}")
+    result["gloo"] = compare_steps("7a 2 gloo ranks on one card vs one process",
+                                   ranks[0]["step"], single)
+    result["rank_step_ms"] = [r["step"]["ms"] for r in ranks]
+    result["rank_warm_step_ms"] = [r["warm_ms"] for r in ranks]
+    result["rank_peak_gib"] = [r["step"]["peak_gib"] for r in ranks]
+    result["allreduce_ms"] = [sorted(r["allreduce_ms"])[2] for r in ranks]
+    result["single_step_ms"], result["single_peak_gib"] = single["ms"], single["peak_gib"]
+
+    g, sd = golden_state_dict()
+    launches = []
+    for dt in ("float32", "bfloat16"):
+        renderer = build_renderer(dt, sd)
+        (want, _), _, _ = renderer.render_timed(golden_batch(g, "cuda"))
+        _, want_ms, _ = renderer.render_timed(golden_batch(g, "cuda"))
+        for rank, r in enumerate(ranks):
+            got = r["render"][dt]
+            if got["launches"] <= 0:
+                raise AssertionError(f"7c {dt}: rank {rank} never launched the bundle-head kernel")
+            if dt == "float32":
+                ok, shown = True, []
+                for k in ("rgb", "nerf_depth", "opacity", "mvs_depth"):
+                    a, b = got["ret"][k], want[k].float().cpu()
+                    ok &= bool(((a - b).abs() <= SHARDED_F32_ATOL * (1 + b.abs())).all())
+                    shown.append(f"{k} max |d| {float((a - b).abs().max()):.3e}")
+                shown = (", ".join(shown) + f" (atol = rtol = {SHARDED_F32_ATOL})")
+            else:
+                db = psnr(got["ret"]["rgb"].numpy(), want["rgb"].float().cpu().numpy())
+                ok, shown = db >= SHARDED_BF16_DB, f"rgb {db:.2f} dB (>= {SHARDED_BF16_DB})"
+            print(f"[parallel] 7c {dt} rank {rank}: sharded render of the golden batch "
+                  f"(128 of 256 bundle rows) {got['ms']:.2f} ms (the first {got['first_ms']:.2f}), "
+                  f"unsharded {want_ms:.2f} ms; against the unsharded render {shown}; "
+                  f"bundle-head kernel launches {got['launches']} (2 renders)")
+            if not ok:
+                raise AssertionError(f"7c {dt}: rank {rank}'s render disagrees: {shown}")
+        launches.append([r["render"][dt]["launches"] for r in ranks])
+        result[f"sharded_ms_{dt}"] = [r["render"][dt]["ms"] for r in ranks]
+        result[f"unsharded_ms_{dt}"] = want_ms
+        del renderer, want
+        free_cuda()
+    result["launches_sharded"] = [sum(ls) for ls in zip(*launches)]
+
+    device = hosts.maybe_initialize_distributed("cuda", env={
+        "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{free_port()}", "JAX_NUM_PROCESSES": "1",
+        "JAX_PROCESS_ID": "0"})
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"7b: backend {dist.get_backend()}, not nccl")
+        case = torch.load(os.path.join(parallel_dir(), "case.pt"), weights_only=False)
+        trainer = make_trainer(train_cfg((512, 640), PARALLEL_BATCH, 1), device, case["state"],
+                               dist.group.WORLD)
+        torch.cuda.reset_peak_memory_stats()
+        nccl = step_record(trainer, trainer.train_step(case["batch"]))
+        trainer.train_step(case["batch"])  # warm: the first one sets up the communicator
+        nccl["warm_ms"] = trainer.step_ms[-1]
+        del trainer
+        free_cuda()
+    finally:
+        hosts.shutdown()
+    print(f"[parallel] 7b nccl, a world of one on {device}: {nccl['ms']:.2f} ms (the first "
+          f"step), a second step {nccl['warm_ms']:.2f} ms, peak {nccl['peak_gib']:.2f} GiB")
+    result["nccl_world_1"] = compare_steps("7b nccl world of one vs one process", nccl, single)
+    result["nccl_world_1"].update(step_ms=nccl["ms"], warm_step_ms=nccl["warm_ms"],
+                                  peak_gib=nccl["peak_gib"])
+    if torch.cuda.device_count() >= PARALLEL_WORLD:
+        ranks = spawn_ranks("nccl", visible=None)
+        if {r["backend"] for r in ranks} != {"nccl"}:
+            raise AssertionError(f"7b: ranks over {[r['backend'] for r in ranks]}, not nccl")
+        result["nccl"] = compare_steps("7b 2 nccl ranks, one a card, vs one process",
+                                       ranks[0]["step"], single)
+    else:
+        print(f"[parallel] 7b: {torch.cuda.device_count()} card on this machine; 7a over nccl "
+              f"with one rank a card needs {PARALLEL_WORLD}: not run")
+    print(f"[parallel] phase 7 took {time.time() - t0:.1f} s")
+    return result
+
+
 def main() -> None:
     import torch
+
+    if len(sys.argv) == 3 and sys.argv[1] == "--rank-of":
+        return rank_main(sys.argv[2])
 
     kernel, plane_kernels, gather_kernels, probe_kernels = phase_device_and_build()
     g, sd = golden_state_dict()
@@ -952,17 +1308,22 @@ def main() -> None:
     val_launches = phase_val(trainer, cfg, packed_before)
     evaluate_launches = phase_evaluate(trainer, cfg)
     phase_train_vs_cpu()
+    del trainer
+    free_cuda()
+    parallel = phase_parallel(phase_parallel_single())
     kernels = [{
         "name": "bundle_head", "route": "cuda",
         "source": "gdb_nerf_tpu_torch/csrc/bundle_head.cu",
         "replaces": "gdb_nerf_tpu/ops/pallas/fused_nerf.py:89",
         "launches": launches, **k1,
         "launches_val": val_launches, "launches_evaluate": evaluate_launches,
+        "launches_sharded": parallel["launches_sharded"],
     }, *convs, *gathers, *probes]
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launch on its path")
     print(json.dumps({"train": train}))
+    print(json.dumps({"parallel": parallel}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

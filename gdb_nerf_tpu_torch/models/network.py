@@ -20,7 +20,15 @@ back as (B, H, W, 3).
 ``forward(batch, train)``: ``train`` renders the MVS stages with their stage
 NeRFs and runs the bundle head as autograd-tracked layers (the CUDA kernel
 has no backward); without it, the head runs the kernel on CUDA tensors.
-BatchNorm follows the module's mode: batch statistics in ``.train()``.
+BatchNorm follows the module's mode: batch statistics in ``.train()``,
+over the ranks of a process group after ``set_batchnorm_group``.
+
+``spatial_group`` (the JAX Network's ``spatial_axis``): when set, each rank
+of that process group samples, encodes, runs the head on and composites
+only its own contiguous range of bundle rows, and the bundle maps are
+all-gathered before the decoder (``parallel/infer.py``).  The FPN, the MVS
+cascade and the decoder stay replicated.  The bundle grid's height must
+divide by the group's size.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from __future__ import annotations
 from typing import Any, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from gdb_nerf_tpu_torch.models.decoder_rdn import Decoder
@@ -37,6 +46,7 @@ from gdb_nerf_tpu_torch.models.layers import cast_weights
 from gdb_nerf_tpu_torch.models.nerf_head import BundleNeRF
 from gdb_nerf_tpu_torch.ops import bundles, mip, render
 from gdb_nerf_tpu_torch.ops.resize import resize_bilinear_nchw, resize_nearest
+from gdb_nerf_tpu_torch.parallel.collectives import gather_rows
 
 
 class Network(nn.Module):
@@ -77,6 +87,7 @@ class Network(nn.Module):
         self.nerf_chunk_size = nerf_chunk_size
         self.reweighting = reweighting
         self.compute_dtype = compute_dtype
+        self.spatial_group = None
         # First FPN level whose scale reaches the bundle-grid resolution.
         lvl = 0
         while lvl < len(fpn_feat_scales) and fpn_feat_scales[lvl] < 1.0 / b:
@@ -168,6 +179,7 @@ class Network(nn.Module):
         tar_exts = batch["tar_views"]["extrinsics"]
         tar_ints = batch["tar_views"]["intrinsics"]
         near_far = batch["near_far"]
+        first, local = self._bundle_rows(H_orig // b, train)
         src_nchw = src_images.reshape(B * V, H_orig, W_orig, 3).permute(0, 3, 1, 2)
 
         # 1. FPN over all source images.
@@ -204,18 +216,22 @@ class Network(nn.Module):
         tex = torch.cat([img_feat, src_small.to(img_feat.dtype)], dim=1).to(dt)
         pyramid = mip.build_pyramid(tex.float(), self.max_mipmap_level)
 
-        # 5-6. Sample, encode, NeRF head, composite, per row slab.
-        n_chunks = self.num_chunks(H, W)
-        rows = H // n_chunks
+        # 5-6. Sample, encode, NeRF head, composite, per row slab; with a
+        # spatial group, only this rank's rows, gathered after.
+        n_chunks = self.num_chunks(local, W)
+        rows = local // n_chunks
         outs = []
         for ci in range(n_chunks):
-            sl = slice(ci * rows, (ci + 1) * rows)
+            sl = slice(first + ci * rows, first + (ci + 1) * rows)
             rb_c = rb._replace(bundle_d=rb.bundle_d[:, sl], uv=rb.uv[sl], cos=rb.cos[:, sl])
             outs.append(self._render_rows(
                 rb_c, depth_range[:, :, sl], vol_range[:, :, sl], src_images, pyramid,
                 feat_volume, src_exts, src_ints, inv, train,
             ))
         feat_map, depth_map, opacity = (torch.cat(t, dim=1) for t in zip(*outs))
+        if self.spatial_group is not None:
+            feat_map, depth_map, opacity = (
+                gather_rows(t, 1, self.spatial_group) for t in (feat_map, depth_map, opacity))
         nerf_depth = 1.0 / depth_map if inv else depth_map
 
         # 7. Decode: coarse RDN path + fine member-ray RGB.  The member-RGB
@@ -231,6 +247,20 @@ class Network(nn.Module):
         maps = resize_bilinear_nchw(torch.stack([nerf_depth, opacity], dim=1), (H_orig, W_orig))
         ret = {"rgb": img, "nerf_depth": maps[:, 0], "mvs_depth": mvs_depth, "opacity": maps[:, 1]}
         return ret, mvs["depths"], mvs["blend_rgbs"]
+
+    def _bundle_rows(self, H: int, train: bool) -> tuple[int, int]:
+        """The first bundle row this rank renders and its row count: all H
+        rows, or with a spatial group its rank's contiguous share."""
+        if self.spatial_group is None:
+            return 0, H
+        if train:
+            raise ValueError("the row-sharded render is an eval path; train with "
+                             "spatial_group None")
+        world = dist.get_world_size(self.spatial_group)
+        if H % world:
+            raise ValueError(f"bundle-grid height {H} (H / bundle_size) is not divisible by "
+                             f"the {world} ranks of the spatial group")
+        return dist.get_rank(self.spatial_group) * (H // world), H // world
 
     def _render_rows(self, rb, depth_range, vol_range, src_images, pyramid, feat_volume,
                      src_exts, src_ints, inv, train):

@@ -82,6 +82,16 @@ class StepSchedule(torch.optim.lr_scheduler.LRScheduler):
     def state_dict(self) -> dict:
         return {k: v for k, v in self.__dict__.items() if k not in ("optimizer", "schedule")}
 
+    def load_state_dict(self, state_dict: dict) -> None:
+        """Restore the step count; every group's LR becomes this schedule's
+        at that count, as optax reads its schedule at the restored count,
+        and not the LR stored with the checkpoint's optimizer.  Load the
+        optimizer's state first."""
+        super().load_state_dict(state_dict)
+        self._last_lr = self.get_lr()
+        for group, lr in zip(self.optimizer.param_groups, self._last_lr):
+            group["lr"] = lr
+
 
 def make_optimizer(cfg: Any, params) -> tuple[torch.optim.Optimizer, StepSchedule]:
     """The cfg's optimizer over ``params`` and its per-step LR schedule."""

@@ -1,11 +1,19 @@
 """The training step: forward, loss, backward, clip, optimizer and LR step.
 
-Port of ``gdb_nerf_tpu/train/step.py`` on one device (data parallelism is
-a later item).  The loss mirrors the reference's: a photometric (MSE +
-SSIM + VGG) loss on the final image plus photometric losses on each
-intermediate MVS stage's render, weighted by ``mvs.loss_weight``.  The
-stats dict has the JAX step's keys, with the Smooth-L1 depth errors
-(``depth_loss{i}``) computed without gradient, for monitoring only.
+Port of ``gdb_nerf_tpu/train/step.py``.  The loss mirrors the reference's:
+a photometric (MSE + SSIM + VGG) loss on the final image plus photometric
+losses on each intermediate MVS stage's render, weighted by
+``mvs.loss_weight``.  The stats dict has the JAX step's keys, with the
+Smooth-L1 depth errors (``depth_loss{i}``) computed without gradient, for
+monitoring only.
+
+Data parallelism (the JAX step under ``shard_map`` on a ``data`` mesh):
+with a process group each rank runs its own shard of the batch, the
+BatchNorm moments span the ranks (``models.layers.set_batchnorm_group``),
+and after the backward the gradients are averaged over ranks in one
+all-reduce of a flat buffer, before the clip, as the JAX step ``pmean``s
+before ``optax.clip``; the stats are averaged too.  Every rank then takes
+the same optimizer step.
 """
 
 from __future__ import annotations
@@ -13,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gdb_nerf_tpu_torch.parallel.collectives import all_reduce_mean_, mean_over_ranks
 from gdb_nerf_tpu_torch.train import losses
 from gdb_nerf_tpu_torch.train.optim import CLIP_VALUE
 
@@ -72,12 +81,15 @@ def make_loss_fn(network, loss_weight, use_perceptual: bool = True):
     return loss_fn
 
 
-def make_train_step(network, optimizer, scheduler, loss_weight, use_perceptual: bool = True):
+def make_train_step(network, optimizer, scheduler, loss_weight, use_perceptual: bool = True,
+                    group=None):
     """``step(batch) -> stats``: one update of ``network``'s parameters.
 
     Every parameter takes part in the update: one that the loss does not
     reach (the FPN's full-resolution head at bundle size 2) gets a zero
-    gradient, as under optax, so that a weight decay reaches it too."""
+    gradient, as under optax, so that a weight decay reaches it too.  With
+    a process ``group``, ``batch`` is this rank's shard and the gradients
+    and stats are averaged over the group's ranks."""
     loss_fn = make_loss_fn(network, loss_weight, use_perceptual)
     params = [p for p in network.parameters() if p.requires_grad]
 
@@ -89,6 +101,9 @@ def make_train_step(network, optimizer, scheduler, loss_weight, use_perceptual: 
                 p.grad.zero_()
         loss, stats = loss_fn(batch)
         loss.backward()
+        if group is not None:
+            all_reduce_mean_([p.grad for p in params], group)
+            stats = mean_over_ranks(stats, group)
         torch.nn.utils.clip_grad_value_(params, CLIP_VALUE)
         optimizer.step()
         scheduler.step()

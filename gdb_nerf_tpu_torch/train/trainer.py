@@ -6,7 +6,9 @@ memory; ``val`` runs the evaluator through the eval ``Renderer`` (the bundle
 head's kernel on the card) and puts the network back into training mode.
 Checkpoints are saved by ``train_net.py`` from ``state_dict``.  Training
 runs in float32; on the card each step is also timed with CUDA events
-(``step_ms``).
+(``step_ms``).  With a process ``group`` the trainer takes data-parallel
+steps (``train/step.py``): its BatchNorms span the group's ranks, and
+``step_ms`` and ``memory_mb`` stay this rank's own.
 """
 
 from __future__ import annotations
@@ -17,24 +19,25 @@ import time
 import numpy as np
 import torch
 
+from gdb_nerf_tpu_torch.models.layers import set_batchnorm_group
 from gdb_nerf_tpu_torch.runtime.renderer import Renderer, set_float32_numerics, to_device
 from gdb_nerf_tpu_torch.train.optim import make_optimizer
 from gdb_nerf_tpu_torch.train.step import make_train_step, to_device_train
 
 
 class Trainer:
-    def __init__(self, cfg, network, device, use_perceptual: bool = True):
+    def __init__(self, cfg, network, device, use_perceptual: bool = True, group=None):
         if network.compute_dtype != torch.float32:
             raise ValueError(
                 f"training runs in float32; compute_dtype {network.compute_dtype} is not "
                 "supported by the trainer (bf16 training is a later item)")
         self.cfg = cfg
         self.device = torch.device(device)
-        self.network = network.to(self.device).train()
+        self.network = set_batchnorm_group(network.to(self.device).train(), group)
         set_float32_numerics(tf32=False)
         self.optimizer, self.scheduler = make_optimizer(cfg, self.network.parameters())
         self.step_fn = make_train_step(self.network, self.optimizer, self.scheduler,
-                                       list(cfg.mvs.loss_weight), use_perceptual)
+                                       list(cfg.mvs.loss_weight), use_perceptual, group)
         self.step_ms: list[float] = []  # CUDA-event time of each step on the card
 
     @property
@@ -118,7 +121,8 @@ class Trainer:
                 "scheduler": self.scheduler.state_dict(), "step": self.step}
 
     def load_state_dict(self, state: dict) -> None:
-        """Resume from a ``utils.checkpoint.load_model`` state."""
+        """Resume from a ``utils.checkpoint.load_model`` state; the next step
+        runs at this config's schedule (``StepSchedule.load_state_dict``)."""
         self.network.load_state_dict(state["net"], strict=True)
         self.optimizer.load_state_dict(state["optim"])
         self.scheduler.load_state_dict(state["scheduler"])

@@ -1,8 +1,8 @@
 """Boundaries of the PyTorch port: no jax, the smoke's config, the CPU path.
 
 * Every module of ``gdb_nerf_tpu_torch`` imports (in a fresh interpreter),
-  the training CLI ``train_net``, ``train/*``, ``eval/*``, ``utils/img`` and
-  ``utils/checkpoint`` among them, and the port's CLI loader and one train
+  the training CLI ``train_net``, ``train/*``, ``eval/*``, ``parallel/*``,
+  ``utils/img`` and ``utils/checkpoint`` among them, and the port's CLI loader and one train
   step run on the CPU, without pulling jax, flax or the JAX package
   (``gdb_nerf_tpu``) into ``sys.modules``; no source of the port names
   either in an import.
@@ -40,39 +40,73 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "gdb_nerf_tpu")
 
 
-def test_port_imports_no_jax():
-    code = (
-        "import importlib, pkgutil, sys\n"
-        "import gdb_nerf_tpu_torch as p\n"
-        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'gdb_nerf_tpu_torch.')]\n"
-        "for m in mods: importlib.import_module(m)\n"
-        "from gdb_nerf_tpu_torch.config import load_cfg\n"
-        "from gdb_nerf_tpu_torch.datasets import make_data_loader\n"
-        "cfg = load_cfg('configs/dtu_eval.yaml', ['synthetic', 'True', 'synthetic_hw', "
-        "'[16, 24]', 'train.num_workers', '0'])\n"
-        "batches = list(make_data_loader(cfg, is_train=False))\n"
-        "assert len(batches) == 8, len(batches)\n"
-        "import torch\n"
-        "from gdb_nerf_tpu_torch.runtime.registry import make_network\n"
-        "from gdb_nerf_tpu_torch.train.trainer import Trainer\n"
-        "cfg = load_cfg('configs/dtu_pretrain.yaml', ['synthetic', 'True', 'synthetic_hw', "
-        "'[64, 64]', 'train.num_workers', '0', 'train.batch_size', '1', 'mvs.num_depth', "
-        "'[16, 8]'])\n"
-        "batch = next(iter(make_data_loader(cfg, is_train=True, max_iter=1)))\n"
-        "assert torch.isfinite(torch.tensor(Trainer(cfg, make_network(cfg), 'cpu')"
-        ".train_step(batch)['loss']))\n"
-        "want = {'gdb_nerf_tpu_torch.' + m for m in ('train_net', 'train.losses', "
-        "'train.optim', 'train.recorder', 'train.step', 'train.trainer', 'eval.metrics', "
-        "'eval.evaluator', 'utils.img', 'utils.checkpoint')}\n"
-        "assert want <= set(mods), want - set(mods)\n"
-        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r})\n"
-        "assert not bad, bad\n"
-        "print(len(mods))\n"
-    )
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+# One fresh interpreter runs both checks that need one, each in its own
+# try block: first what the smoke runs off the card (its config, its
+# requests, the network), then every module of the port, the CLI's loader
+# and one train step.  After each it lists the forbidden modules that came
+# into ``sys.modules`` during it.
+_FRESH = (
+    "import json, sys, traceback\n"
+    "def forbidden(before):\n"
+    f"    return sorted(k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r} "
+    "and k not in before)\n"
+    "report = {}\n"
+    "try:\n"
+    "    import chip_smoke\n"
+    "    from gdb_nerf_tpu_torch.runtime.registry import make_network\n"
+    "    net = make_network(chip_smoke.namespace(chip_smoke.DTU_EVAL))\n"
+    "    req = chip_smoke.synthetic_requests(2, (16, 20))\n"
+    "    report['smoke'] = {'bad': forbidden(())}\n"
+    "except Exception:\n"
+    "    report['smoke'] = {'error': traceback.format_exc()}\n"
+    "before = set(sys.modules)\n"
+    "try:\n"
+    "    import importlib, pkgutil\n"
+    "    import gdb_nerf_tpu_torch as p\n"
+    "    mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'gdb_nerf_tpu_torch.')]\n"
+    "    for m in mods: importlib.import_module(m)\n"
+    "    from gdb_nerf_tpu_torch.config import load_cfg\n"
+    "    from gdb_nerf_tpu_torch.datasets import make_data_loader\n"
+    "    cfg = load_cfg('configs/dtu_eval.yaml', ['synthetic', 'True', 'synthetic_hw', "
+    "'[16, 24]', 'train.num_workers', '0'])\n"
+    "    batches = list(make_data_loader(cfg, is_train=False))\n"
+    "    assert len(batches) == 8, len(batches)\n"
+    "    import torch\n"
+    "    from gdb_nerf_tpu_torch.runtime.registry import make_network\n"
+    "    from gdb_nerf_tpu_torch.train.trainer import Trainer\n"
+    "    cfg = load_cfg('configs/dtu_pretrain.yaml', ['synthetic', 'True', 'synthetic_hw', "
+    "'[64, 64]', 'train.num_workers', '0', 'train.batch_size', '1', 'mvs.num_depth', "
+    "'[16, 8]'])\n"
+    "    batch = next(iter(make_data_loader(cfg, is_train=True, max_iter=1)))\n"
+    "    assert torch.isfinite(torch.tensor(Trainer(cfg, make_network(cfg), 'cpu')"
+    ".train_step(batch)['loss']))\n"
+    "    report['port'] = {'modules': mods, 'bad': forbidden(before)}\n"
+    "except Exception:\n"
+    "    report['port'] = {'error': traceback.format_exc()}\n"
+    "print(json.dumps(report))\n"
+)
+
+
+@pytest.fixture(scope="module")
+def fresh_interpreter() -> dict:
+    out = subprocess.run([sys.executable, "-c", _FRESH], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 40  # every module of the port was imported
+    import json
+
+    return json.loads(out.stdout.splitlines()[-1])
+
+
+def test_port_imports_no_jax(fresh_interpreter):
+    report = fresh_interpreter["port"]
+    assert "error" not in report, report.get("error")
+    want = {"gdb_nerf_tpu_torch." + m for m in (
+        "train_net", "train.losses", "train.optim", "train.recorder", "train.step",
+        "train.trainer", "eval.metrics", "eval.evaluator", "utils.img", "utils.checkpoint",
+        "parallel", "parallel.hosts", "parallel.collectives", "parallel.infer")}
+    assert want <= set(report["modules"]), want - set(report["modules"])
+    assert not report["bad"], report["bad"]
+    assert len(report["modules"]) >= 66  # every module of the port was imported
 
 
 def _imported_names(path: str) -> list[str]:
@@ -142,23 +176,14 @@ def test_smoke_requests_equal_the_synthetic_loader():
             np.testing.assert_array_equal(a, b, err_msg=str(path))
 
 
-def test_smoke_imports_neither_jax_nor_the_jax_package():
+def test_smoke_imports_neither_jax_nor_the_jax_package(fresh_interpreter):
     bad = [n for n in _imported_names(os.path.join(REPO, "chip_smoke.py"))
            if n.split(".")[0] in FORBIDDEN]
     assert not bad, bad
     # What the smoke runs off the card: its config, its requests, the network.
-    code = (
-        "import sys, chip_smoke\n"
-        "from gdb_nerf_tpu_torch.runtime.registry import make_network\n"
-        "net = make_network(chip_smoke.namespace(chip_smoke.DTU_EVAL))\n"
-        "req = chip_smoke.synthetic_requests(2, (16, 20))\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'gdb_nerf_tpu'))\n"
-        "assert not bad, bad\n"
-    )
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
-                         text=True, timeout=300)
-    assert out.returncode == 0, out.stderr
+    report = fresh_interpreter["smoke"]
+    assert "error" not in report, report.get("error")
+    assert not report["bad"], report["bad"]
 
 
 def test_smoke_literal_and_requests_equal_the_ports_host_layer():

@@ -14,6 +14,7 @@
 Both run the plain PyTorch path on the CPU in float32.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -98,6 +99,40 @@ def randomize_batch_stats(tree, rng):
     return out
 
 
+# XLA's backend optimizations off for the JAX reference: it compiles in
+# about two thirds of the time (CPU) and computes the same functions.
+XLA_O0 = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
+def run_jitted(fn, *args):
+    """``jax.jit(fn)(*args)``, compiled with ``XLA_O0``."""
+    return jax.jit(fn).lower(*args).compile(XLA_O0)(*args)
+
+
+def jax_variables(jnet, jbatch, rng) -> dict:
+    """Random weights in the JAX Network's variable tree, without compiling
+    its init: the tree (of ``init(..., train=True)``, so it holds the stage
+    NeRF; traced on the first item in one slab, which changes no shape in
+    it) comes from ``jax.eval_shape``; each kernel is drawn as flax's
+    lecun_normal draws it (a normal truncated at two deviations, scaled to
+    variance 1 / fan_in), biases are 0 and BatchNorm scales 1, as flax
+    initializes them; the BatchNorm statistics are randomized."""
+    one = dataclasses.replace(jnet, nerf_chunk_size=0)
+    tree = jax.eval_shape(lambda b: one.init(jax.random.PRNGKey(0), b, train=True),
+                          jax.tree_util.tree_map(lambda a: a[:1], jbatch))
+
+    def draw(path, leaf):
+        if path[-1].key != "kernel":
+            return (np.ones if path[-1].key == "scale" else np.zeros)(leaf.shape, np.float32)
+        x = rng.standard_normal(leaf.shape)
+        while (out := np.abs(x) > 2.0).any():
+            x[out] = rng.standard_normal(int(out.sum()))
+        return (x / 0.8796256610342398 / np.sqrt(np.prod(leaf.shape[:-1]))).astype(np.float32)
+
+    return {"params": jax.tree_util.tree_map_with_path(draw, tree["params"]),
+            "batch_stats": randomize_batch_stats(tree["batch_stats"], rng)}
+
+
 def rel_l1(a, b) -> float:
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.abs(a - b).sum() / np.abs(b).sum())
@@ -113,12 +148,8 @@ def assert_port_matches_jax_network(rng, batch, **kw):
 
     jbatch = jax.tree_util.tree_map(jnp.asarray, batch)
     jnet = JaxNetwork(**kw)
-    # Initialized with train=True so the tree holds the stage NeRF too.
-    variables = jax.tree_util.tree_map(np.asarray, jax.jit(
-        lambda k, b: jnet.init(k, b, train=True))(jax.random.PRNGKey(0), jbatch))
-    variables = {"params": variables["params"],
-                 "batch_stats": randomize_batch_stats(variables["batch_stats"], rng)}
-    ret_j, _, _ = jax.jit(lambda v, b: jnet.apply(v, b, train=False))(variables, jbatch)
+    variables = jax_variables(jnet, jbatch, rng)
+    ret_j, _, _ = run_jitted(lambda v, b: jnet.apply(v, b, train=False), variables, jbatch)
 
     net = Network(**kw).eval()
     net.load_state_dict(state_dict_from_jax(variables), strict=True)
@@ -177,16 +208,56 @@ def test_bf16_network_casts_its_feature_path_once(rng):
     assert net16.nerf.kernel.launches == 0
 
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# Runs CLI commands (module, argv) one after another in one interpreter, as
+# ``python -m module argv...`` would, and reports each one's exit code,
+# standard output and standard error (with the message of a SystemExit, or
+# the traceback of an error, as python prints them).
+_CLI_RUNNER = """
+import contextlib, io, json, runpy, sys, traceback
+report = []
+for module, argv in json.loads(sys.argv[1]):
+    out, err, code = io.StringIO(), io.StringIO(), 0
+    sys.argv = [module, *argv]
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            runpy.run_module(module, run_name="__main__", alter_sys=True)
+        except SystemExit as e:
+            if isinstance(e.code, str):
+                print(e.code, file=sys.stderr)
+            code = e.code if isinstance(e.code, int) else int(e.code is not None)
+        except BaseException:
+            traceback.print_exc()
+            code = 1
+    report.append({"returncode": code, "stdout": out.getvalue(), "stderr": err.getvalue()})
+print(json.dumps(report))
+"""
+
+
+def run_clis(commands, env=None, timeout=600) -> list:
+    """Each (module, argv) of ``commands`` run in one fresh interpreter in the
+    repo's root; returns one namespace (returncode, stdout, stderr) each."""
+    import json
+    from types import SimpleNamespace
+
+    out = subprocess.run([sys.executable, "-c", _CLI_RUNNER, json.dumps(commands)], cwd=REPO,
+                         capture_output=True, text=True, timeout=timeout, env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return [SimpleNamespace(**r) for r in json.loads(out.stdout.splitlines()[-1])]
+
+
 def test_cli_renders_requests_on_cpu():
     """The port's CLI end to end on the CPU, at a small synthetic frame."""
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    cmd = [sys.executable, "-m", "gdb_nerf_tpu_torch.run", "--type", "network",
-           "--cfg_file", "configs/dtu_eval.yaml", "synthetic", "True",
-           "synthetic_hw", "[64,128]", "device", "cpu"]
-    out = subprocess.run(cmd, cwd=repo, capture_output=True, text=True, timeout=600,
-                         env={**os.environ, "workspace": os.path.join(repo, "build", "workspace")})
+    args = ["--type", "network", "--cfg_file", "configs/dtu_eval.yaml", "synthetic", "True",
+            "synthetic_hw", "[64,128]", "device", "cpu"]
+    commands = [("gdb_nerf_tpu_torch.run", args)]
+    if not torch.cuda.is_available():  # the default device is cuda: no silent CPU run
+        commands.append(("gdb_nerf_tpu_torch.run", args[:-2]))
+    outs = run_clis(commands, env={**os.environ,
+                                   "workspace": os.path.join(REPO, "build", "workspace")})
+    out = outs[0]
     assert out.returncode == 0, out.stderr[-2000:]
     assert "Mean forward latency:" in out.stdout and "over 7 batches (cpu" in out.stdout
-    if not torch.cuda.is_available():  # the default device is cuda: no silent CPU run
-        out = subprocess.run(cmd[:-2], cwd=repo, capture_output=True, text=True, timeout=600)
-        assert out.returncode != 0 and "CUDA is not available" in out.stderr
+    if len(outs) > 1:
+        assert outs[1].returncode != 0 and "CUDA is not available" in outs[1].stderr

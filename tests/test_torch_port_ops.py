@@ -23,6 +23,7 @@ from gdb_nerf_tpu.ops import mip as jmip
 from gdb_nerf_tpu.ops import render as jrender
 from gdb_nerf_tpu.ops import resize as jresize
 from gdb_nerf_tpu_torch.ops import bundles, camera, cost_volume, grid_sample, mip, render, resize
+from tests.test_torch_port_network import run_jitted
 
 ATOL, RTOL = 1e-5, 1e-4
 
@@ -261,11 +262,12 @@ def test_encode_samples(rng):
     se, si = sc["src_views"]["extrinsics"], sc["src_views"]["intrinsics"]
     pyr = mip.build_pyramid(T(img_feat[0]).permute(0, 3, 1, 2), 3)
     enc = bundles.encode_samples(rb, s, T(src), pyr, T(fvol).permute(0, 4, 1, 2, 3), T(se), T(si), 3)
-    jpacked, joffs = jax.vmap(lambda t: jmip.pack_pyramid(jmip.build_pyramid(t, 3)))(
-        jnp.asarray(img_feat[0]))
-    encj = jbundles.encode_samples(
-        rbj, sj, jnp.asarray(src[0]), jnp.asarray(img_feat[0]), jpacked, joffs[0],
-        jnp.asarray(fvol[0]), jnp.asarray(se[0]), jnp.asarray(si[0]), 3)
+    def encode_j(rbj, sj, src, img_feat, fvol, se, si):
+        jpacked, joffs = jax.vmap(lambda t: jmip.pack_pyramid(jmip.build_pyramid(t, 3)))(img_feat)
+        return jbundles.encode_samples(rbj, sj, src, img_feat, jpacked, joffs[0], fvol, se, si, 3)
+
+    encj = run_jitted(encode_j, rbj, sj,
+                      *(jnp.asarray(a[0]) for a in (src, img_feat, fvol, se, si)))
     close(enc.vox_feat[0], encj.vox_feat)
     close(enc.rgbs[0], encj.rgbs)
     # mip_feat / ray_diff pass through a log2 level and normalizations: 1e-4.

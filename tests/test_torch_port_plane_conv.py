@@ -48,6 +48,7 @@ from gdb_nerf_tpu_torch.kernels.plane_conv import (
     convchain_reference,
 )
 from gdb_nerf_tpu_torch.tools import microbench_conv
+from tests.test_torch_port_network import run_jitted
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _spec = importlib.util.spec_from_file_location(
@@ -92,7 +93,8 @@ def test_conv1_matches_pallas(dtype):
     kernels = PlaneConvKernels()
     got = kernels.conv1(xt, wt, bt)
     assert got.dtype == xt.dtype and kernels.launches["conv1"] == 0
-    _assert_close(got, pallas_conv.pallas_conv1(xj, wj, bj, interpret=True), dtype)
+    want = run_jitted(lambda *a: pallas_conv.pallas_conv1(*a, interpret=True), xj, wj, bj)
+    _assert_close(got, want, dtype)
     # Second reference: cuDNN's math on the CPU, in float32.
     want = torch.relu(F.conv2d(xt.float()[None], wt.float(), bt.float()))[0].to(xt.dtype)
     _assert_close(got, want.float().numpy(), dtype)
@@ -110,7 +112,8 @@ def test_convchain_matches_pallas(dtype):
                                   rng.standard_normal((n, C)) * 0.1 + 0.5))
     got = PlaneConvKernels().convchain(xt, wt, bt)
     assert got.dtype == xt.dtype
-    _assert_close(got, pallas_conv.pallas_convchain(xj, wj, bj, interpret=True), dtype)
+    want = run_jitted(lambda *a: pallas_conv.pallas_convchain(*a, interpret=True), xj, wj, bj)
+    _assert_close(got, want, dtype)
     # Second reference: F.conv2d, zero-padding each intermediate after
     # rounding it to the working dtype.
     y = xt.float()[None]
@@ -135,7 +138,7 @@ def test_fpnprim_matches_pallas(dtype):
                                   rng.standard_normal(C)))
     o1, o2 = PlaneConvKernels().fpnprim(xt, wt, bt)
     assert o1.shape == (C, H // 2, W // 2) and o2.shape == (C, H, W)
-    w1, w2 = pallas_conv.pallas_fpnprim(xj, wj, bj, interpret=True)
+    w1, w2 = run_jitted(lambda *a: pallas_conv.pallas_fpnprim(*a, interpret=True), xj, wj, bj)
     _assert_close(o1, w1, dtype)
     _assert_close(o2, w2, dtype)
     # Second reference: a stride-2 F.conv2d, upsampled, last 3 rows zero.
