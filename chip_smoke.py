@@ -83,10 +83,30 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      the same way (and (a) over nccl, one rank a card, where there are two
      cards); (c) on the same two ranks, ShardedRenderer on the golden batch
      in float32 and bf16, each rank's rows through the bundle-head kernel
-     (its launches counted on each rank), held to the unsharded render;
-  8. one JSON line of the training numbers, one of phase 7's, one of kernel
-     results (the bundle head's with its launches in 6c, 6d and 7c), then
-     the JSON result line.
+     (its launches counted on each rank), held to the unsharded render,
+     with debug_outputs on: the gathered per-bundle sample counts (spb)
+     equal to the unsharded ones;
+  8. the bf16 gate on trained weights, the sampling diagnostics and LPIPS:
+     (a) tools/bf16_gate.py's recipe (configs/dtu_pretrain.yaml at 256x320,
+     B = 4, V = 3, 3 epochs of 120 steps, float32, TF32 off) through
+     bf16_gate.train, deterministic (the same weights on every run on the
+     card), with the step time, the peak memory, the losses, which must be
+     finite and fall (the last 20 steps' mean below the first 20's), and
+     their digest; (b) its checkpoint loaded back and 4 dtu_eval scenes at 512x640
+     rendered in float32 and bf16 through the bundle-head kernel
+     (bf16_gate.gate; its launches counted in each dtype): the rows, the
+     bf16-vs-float32 agreement and the worst PSNR delta against the target,
+     which must be <= 0.05 dB; (c) tools/measure_fill.py and
+     tools/measure_lod.py on those weights at dtu_eval 512x640, llff_eval
+     640x960 and nerf_eval 800x800 in float32, 2 scenes each: spb in
+     [1, S] for every bundle, every lod in the histogram; (d) LPIPS with
+     seeded VGG16-shaped weights on two of (b)'s renders, the card against
+     the CPU, then ``run --type evaluate`` with those weights in its
+     workspace and (a)'s checkpoint, which must print a numeric lpips;
+  9. one JSON line of the training numbers, one of phase 7's, one of phase
+     8's, one of kernel results (the bundle head's with its launches in 6c,
+     6d, 7c, 8b and 8c), then the JSON result line, or, when the gate of 8b
+     failed, the failure.
 
 Needs one CUDA device, nvcc, torch and numpy; no network, no yaml, and
 nothing of jax or of the JAX package (gdb_nerf_tpu): the config literal and
@@ -108,6 +128,9 @@ from types import SimpleNamespace
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# Phase 8a trains under torch.use_deterministic_algorithms, which needs
+# cuBLAS's deterministic workspace from the process's first product on.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 GOLDEN = os.path.join(REPO, "tests", "golden", "dtu_eval_golden.npz")
 
 # The network's part of configs/dtu_eval.yaml (over configs/dtu_pretrain.yaml
@@ -654,11 +677,12 @@ def golden_batch(g, device):
     }, device)
 
 
-def build_renderer(compute_dtype: str, sd):
-    from gdb_nerf_tpu_torch.runtime.registry import make_network
+def build_renderer(compute_dtype: str, sd, debug_outputs: bool = False):
+    from gdb_nerf_tpu_torch.models.network import Network
     from gdb_nerf_tpu_torch.runtime.renderer import Renderer
 
-    network = make_network(namespace({**DTU_EVAL, "compute_dtype": compute_dtype}))
+    network = Network.from_config(namespace({**DTU_EVAL, "compute_dtype": compute_dtype}),
+                                  debug_outputs=debug_outputs)
     network.load_state_dict(sd, strict=True)
     return Renderer(network, "cuda", tf32=False)
 
@@ -1049,9 +1073,9 @@ def rank_main(out_dir: str) -> None:
     import torch
     import torch.distributed as dist
 
+    from gdb_nerf_tpu_torch.models.network import Network
     from gdb_nerf_tpu_torch.parallel import ShardedRenderer, hosts
     from gdb_nerf_tpu_torch.parallel.collectives import all_reduce_mean_
-    from gdb_nerf_tpu_torch.runtime.registry import make_network
 
     device = hosts.maybe_initialize_distributed("cuda")
     group, rank = hosts.default_group(), hosts.rank()
@@ -1080,14 +1104,15 @@ def rank_main(out_dir: str) -> None:
     g, sd = golden_state_dict()
     out["render"] = {}
     for dt in ("float32", "bfloat16"):
-        network = make_network(namespace({**DTU_EVAL, "compute_dtype": dt}))
+        network = Network.from_config(namespace({**DTU_EVAL, "compute_dtype": dt}),
+                                      debug_outputs=True)
         network.load_state_dict(sd, strict=True)
         renderer = ShardedRenderer(network, device, group)
         batch = golden_batch(g, device)
         network.nerf.kernel.launches = 0
         (ret, _), first_ms, _ = renderer.render_timed(batch)
         _, ms, _ = renderer.render_timed(batch)
-        out["render"][dt] = {"ret": {k: v.float().cpu() for k, v in ret.items()}, "ms": ms,
+        out["render"][dt] = {"ret": {k: v.cpu() for k, v in ret.items()}, "ms": ms,
                              "first_ms": first_ms, "launches": network.nerf.kernel.launches}
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     hosts.shutdown()
@@ -1220,7 +1245,7 @@ def phase_parallel(single: dict) -> dict:
     g, sd = golden_state_dict()
     launches = []
     for dt in ("float32", "bfloat16"):
-        renderer = build_renderer(dt, sd)
+        renderer = build_renderer(dt, sd, debug_outputs=True)
         (want, _), _, _ = renderer.render_timed(golden_batch(g, "cuda"))
         _, want_ms, _ = renderer.render_timed(golden_batch(g, "cuda"))
         for rank, r in enumerate(ranks):
@@ -1237,10 +1262,15 @@ def phase_parallel(single: dict) -> dict:
             else:
                 db = psnr(got["ret"]["rgb"].numpy(), want["rgb"].float().cpu().numpy())
                 ok, shown = db >= SHARDED_BF16_DB, f"rgb {db:.2f} dB (>= {SHARDED_BF16_DB})"
+            spb = got["ret"]["spb"]
+            spb_equal = spb.dtype == torch.int32 and torch.equal(spb, want["spb"].cpu())
+            ok &= spb_equal
             print(f"[parallel] 7c {dt} rank {rank}: sharded render of the golden batch "
                   f"(128 of 256 bundle rows) {got['ms']:.2f} ms (the first {got['first_ms']:.2f}), "
-                  f"unsharded {want_ms:.2f} ms; against the unsharded render {shown}; "
-                  f"bundle-head kernel launches {got['launches']} (2 renders)")
+                  f"unsharded {want_ms:.2f} ms; against the unsharded render {shown}; spb "
+                  f"{'equal' if spb_equal else 'DIFFERS'} (mean {float(spb.float().mean()):.4f} "
+                  f"of {DTU_EVAL['nerf']['max_num_samples']}); bundle-head kernel launches "
+                  f"{got['launches']} (2 renders)")
             if not ok:
                 raise AssertionError(f"7c {dt}: rank {rank}'s render disagrees: {shown}")
         launches.append([r["render"][dt]["launches"] for r in ranks])
@@ -1285,8 +1315,208 @@ def phase_parallel(single: dict) -> dict:
     return result
 
 
+# Phase 8: the bf16 gate on trained weights (tools/bf16_gate.py's recipe,
+# PARITY.md's: dtu_pretrain at 256x320, B = 4, V = 3, 3 epochs of 120 steps,
+# float32, TF32 off, from weights initialized from seed 0, deterministic), the sampling
+# diagnostics on those weights, and LPIPS.  The gate's bar is
+# bf16_gate.GATE_BAR (0.05 dB) over GATE_SCENES dtu_eval scenes at 512x640.
+# The card's LPIPS is held to the CPU's within LPIPS_RTOL relative (float32,
+# TF32 off on both).
+GATE_HW, GATE_EPOCHS, GATE_EP_ITER, GATE_VIEWS = (256, 320), 3, 120, 3
+GATE_SCENES, DIAG_SCENES = 4, 2
+LPIPS_RTOL = 1e-4
+# The network's part of configs/llff_eval.yaml and configs/nerf_eval.yaml, as
+# load_cfg merges them (tests/test_torch_port_imports.py holds them equal),
+# and each eval config's protocol frame size.
+LLFF_EVAL = {**DTU_EVAL, "mvs": {**DTU_EVAL["mvs"], "num_depth": [36, 8]},
+             "nerf": {**DTU_EVAL["nerf"], "reweighting": True}}
+NERF_EVAL = {**DTU_EVAL, "nerf": {**DTU_EVAL["nerf"], "max_num_samples": 6, "reweighting": True}}
+EVAL_CONFIGS = {"dtu_eval": (DTU_EVAL, (512, 640)), "llff_eval": (LLFF_EVAL, (640, 960)),
+                "nerf_eval": (NERF_EVAL, (800, 800))}
+
+
+def gate_workspace() -> str:
+    return os.path.join(REPO, "build", "smoke_gate", "workspace")
+
+
+def gate_dir() -> str:
+    """Where 8a saves its checkpoint: dtu_eval's trained_model_dir under
+    ``gate_workspace()`` (task gdb_nerf, experiment dtu_pretrain), so that
+    ``run --type evaluate`` with that workspace loads it."""
+    return os.path.join(gate_workspace(), "trained_model", "gdb_nerf", "dtu_pretrain")
+
+
+def gate_train_cfg() -> SimpleNamespace:
+    """tools/bf16_gate.py's recipe (RECIPE over configs/dtu_pretrain.yaml)."""
+    cfg = train_cfg(GATE_HW, DTU_PRETRAIN["train"]["batch_size"], GATE_EP_ITER)
+    cfg.train.epoch = GATE_EPOCHS
+    cfg.train.sampler_meta.input_views_num = [GATE_VIEWS]
+    cfg.train.sampler_meta.input_views_prob = [1.0]
+    return cfg
+
+
+def eval_cfg(name: str) -> SimpleNamespace:
+    """configs/<name>.yaml on the synthetic loader at its protocol size."""
+    net, hw = EVAL_CONFIGS[name]
+    cfg = train_cfg(hw, 1, 1)
+    for k, v in net.items():
+        setattr(cfg, k, namespace(v) if isinstance(v, dict) else v)
+    return cfg
+
+
+def phase_gate_train() -> dict:
+    """8a. The gate's recipe through bf16_gate.train: each epoch's losses, the
+    step time (first step excluded), the peak memory; the loss finite, the
+    last 20 steps' mean below the first 20's."""
+    from gdb_nerf_tpu_torch.tools import bf16_gate
+
+    cfg = gate_train_cfg()
+    t0 = time.time()
+    out = bf16_gate.train(cfg, gate_dir(), "cuda")
+    wall = time.time() - t0
+    losses, ms = out["losses"], out["step_ms"][1:]
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    smi = card()
+    print(f"[gate-train] dtu_pretrain {GATE_HW[0]}x{GATE_HW[1]} B={cfg.train.batch_size} "
+          f"V={sorted(set(out['views']))} float32, {len(losses)} steps in {wall:.1f} s: step "
+          f"{np.mean(ms):.2f} ms mean, {np.median(ms):.2f} median (CUDA events, first excluded; "
+          f"min {min(ms):.2f}, max {max(ms):.2f}), peak memory {out['peak_gib']:.2f} GiB; loss "
+          f"first {losses[0]:.6f}, last {losses[-1]:.6f}, mean of the first 20 {first:.6f}, of "
+          f"the last 20 {last:.6f}, digest {out['loss_digest']}; last stats {out['last_stats']} "
+          f"on {smi}")
+    if len(losses) != GATE_EPOCHS * GATE_EP_ITER or not np.isfinite(losses).all():
+        raise AssertionError(f"8a: {len(losses)} steps, losses finite: {np.isfinite(losses).all()}")
+    if set(out["views"]) != {GATE_VIEWS} or not last < first:
+        raise AssertionError(f"8a: views {set(out['views'])}; loss {first} -> {last} did not fall")
+    return {"steps": len(losses), "wall_s": wall, "step_ms_mean": float(np.mean(ms)),
+            "step_ms_median": float(np.median(ms)), "peak_gib": out["peak_gib"],
+            "first_loss": losses[0], "last_loss": losses[-1], "first20": first, "last20": last,
+            "loss_digest": out["loss_digest"], "epoch_first_losses": losses[::GATE_EP_ITER], "card": smi}
+
+
+def phase_gate(state: dict) -> dict:
+    """8b. The checkpoint of 8a (loaded back by load_network) on GATE_SCENES
+    dtu_eval scenes at 512x640 in float32 and bf16 through bf16_gate.gate:
+    the rows, the worst delta against the bar, the bundle-head kernel's
+    launches in each dtype (one a render).  ``main`` fails the smoke on a
+    failed gate once 8c and 8d have run and every JSON line is printed."""
+    from gdb_nerf_tpu_torch.tools import bf16_gate
+
+    result = bf16_gate.gate(eval_cfg("dtu_eval"), state, "cuda", GATE_SCENES)
+    for row in result["rows"]:
+        print("[gate] " + json.dumps(row))
+    agree = [r["agree_db"] for r in result["rows"]]
+    print(f"[gate] worst |gt_bf16 - gt_f32| {result['worst_gate_delta_bf16_trained']:.4f} dB "
+          f"(bar {result['gate_bar']}): {'pass' if result['pass'] else 'FAIL'}; bf16 against "
+          f"float32 {min(agree):.2f}-{max(agree):.2f} dB; bundle-head kernel launches "
+          f"{result['launches']}")
+    if any(n < GATE_SCENES for n in result["launches"].values()):
+        raise AssertionError(f"8b: the kernel did not launch for every render: {result['launches']}")
+    return result
+
+
+def phase_diagnostics(state: dict) -> dict:
+    """8c. measure_fill and measure_lod on the trained weights, each eval
+    config at its protocol size in float32 over DIAG_SCENES scenes, through
+    the bundle-head kernel; spb in [1, S] (measure_fill raises otherwise),
+    one count a bundle, one lod a sample and view, each in the histogram."""
+    from gdb_nerf_tpu_torch.tools import measure_common, measure_fill, measure_lod
+
+    out = {}
+    for name, (_, (H, W)) in EVAL_CONFIGS.items():
+        cfg = eval_cfg(name)
+        batches = measure_common.first_batches(cfg, DIAG_SCENES)
+        renderer = measure_common.renderer_for(cfg, "cuda", state, debug_outputs=True)
+        kernel = renderer.network.nerf.kernel
+        kernel.launches = 0
+        t0 = time.time()
+        counts = measure_fill.spb_counts(renderer, batches)
+        fill = measure_fill.fill_stats(name, counts, f"{DIAG_SCENES} synthetic scenes, the "
+                                       "weights of phase 8a")
+        lod = measure_lod.measure(renderer, batches)
+        S, V = cfg.nerf.max_num_samples, GATE_VIEWS
+        bundles = DIAG_SCENES * (H // 2) * (W // 2)
+        print(f"[diagnostics] {json.dumps({**fill, 'hw': [H, W]})}")
+        print(f"[diagnostics] {json.dumps({'config': name, **lod, 'hw': [H, W]})}")
+        print(f"[diagnostics] {name}: {time.time() - t0:.1f} s, bundle-head kernel launches "
+              f"{kernel.launches}")
+        if (int(counts.sum()) != bundles or lod["n"] != bundles * V * S
+                or sum(lod["hist_halves"].values()) != lod["n"] or kernel.launches < DIAG_SCENES):
+            raise AssertionError(f"8c {name}: {int(counts.sum())} spb counts for {bundles} "
+                                 f"bundles, {lod['n']} lods, {kernel.launches} launches")
+        out[name] = {"fill": fill, "lod": lod, "launches": kernel.launches}
+        del renderer
+        free_cuda()
+    return out
+
+
+def lpips_weights(seed: int = 0) -> dict:
+    """LPIPS weights of VGG16's shapes (the real ones are absent), in the JAX
+    module's layout: He-normal HWIO convs, small biases, heads in [0, 1)."""
+    rng = np.random.default_rng(seed)
+    weights, cin, li = {}, 3, 0
+    for i, (ch, n) in enumerate([(64, 2), (128, 2), (256, 3), (512, 3), (512, 3)]):
+        for _ in range(n):
+            weights[f"conv{li}_w"] = (rng.standard_normal((3, 3, cin, ch), np.float32)
+                                      * np.float32(np.sqrt(2.0 / (9 * cin))))
+            weights[f"conv{li}_b"] = (0.01 * rng.standard_normal(ch)).astype(np.float32)
+            cin, li = ch, li + 1
+        weights[f"lin{i}_w"] = rng.uniform(0, 1, ch).astype(np.float32)
+    return weights
+
+
+def phase_lpips(gate: dict) -> dict:
+    """8d. LPIPS of two of 8b's float32 renders against their targets on the
+    card and on the CPU (seeded VGG16-shaped weights), then ``run --type
+    evaluate`` with those weights in its workspace, which must print a
+    numeric lpips."""
+    import ast
+
+    from gdb_nerf_tpu_torch.eval.lpips import LPIPS
+
+    weights = lpips_weights()
+    on_card, on_cpu = LPIPS(weights, "cuda"), LPIPS(weights, "cpu")
+    pairs = []
+    for pred, gt in list(zip(gate["renders"]["float32"], gate["targets"]))[:2]:
+        a, b = gt * 2 - 1, pred * 2 - 1  # the evaluator's order
+        t0 = time.time()
+        card_v = on_card(a, b)
+        card_s = time.time() - t0
+        cpu_v = on_cpu(a, b)
+        rel = abs(card_v - cpu_v) / abs(cpu_v)
+        pairs.append({"card": card_v, "cpu": cpu_v, "rel": rel, "card_s": card_s})
+        print(f"[lpips] {a.shape[0]}x{a.shape[1]} render against its target: card {card_v:.8f} "
+              f"({card_s:.3f} s on the host clock, the first call included), cpu {cpu_v:.8f}, "
+              f"relative {rel:.2e} (bound {LPIPS_RTOL})")
+        if not rel <= LPIPS_RTOL:
+            raise AssertionError(f"8d: the card's LPIPS {card_v} against the CPU's {cpu_v}")
+    os.makedirs(os.path.join(gate_workspace(), "weights"), exist_ok=True)
+    np.savez(os.path.join(gate_workspace(), "weights", "lpips_vgg.npz"), **weights)
+    t0 = time.time()
+    run = subprocess.run(
+        [sys.executable, "-m", "gdb_nerf_tpu_torch.run", "--type", "evaluate", "--cfg_file",
+         "configs/dtu_eval.yaml", "synthetic", "True", "eval_lpips", "True"],
+        cwd=REPO, env={**os.environ, "workspace": gate_workspace()}, capture_output=True,
+        text=True, timeout=600)
+    for line in run.stdout.splitlines()[-16:]:
+        print(f"[lpips] evaluate: {line}")
+    if run.returncode != 0:
+        raise AssertionError(f"8d: run --type evaluate exited {run.returncode}: {run.stderr[-3000:]}")
+    summary = ast.literal_eval(next(l for l in run.stdout.splitlines() if l.startswith("{'psnr'")))
+    loaded = f"loaded {os.path.join(gate_dir(), 'latest.pth')}" in run.stdout
+    print(f"[lpips] run --type evaluate with eval_lpips True: {summary} in "
+          f"{time.time() - t0:.1f} s; the checkpoint of 8a loaded: {loaded}")
+    if not isinstance(summary.get("lpips"), float) or not loaded:
+        raise AssertionError(f"8d: evaluate printed lpips {summary.get('lpips')!r}, "
+                             f"loaded the checkpoint of 8a: {loaded}")
+    return {"pairs": pairs, "evaluate": summary}
+
+
 def main() -> None:
     import torch
+
+    from gdb_nerf_tpu_torch.tools import bf16_gate
+    from gdb_nerf_tpu_torch.utils.checkpoint import load_network
 
     if len(sys.argv) == 3 and sys.argv[1] == "--rank-of":
         return rank_main(sys.argv[2])
@@ -1311,6 +1541,13 @@ def main() -> None:
     del trainer
     free_cuda()
     parallel = phase_parallel(phase_parallel_single())
+    t0 = time.time()
+    gate_train = phase_gate_train()
+    state = load_network(gate_dir())[0]
+    gate = phase_gate(state)
+    diagnostics = phase_diagnostics(state)
+    lpips = phase_lpips(gate)
+    print(f"[gate] phase 8 took {time.time() - t0:.1f} s")
     kernels = [{
         "name": "bundle_head", "route": "cuda",
         "source": "gdb_nerf_tpu_torch/csrc/bundle_head.cu",
@@ -1318,13 +1555,22 @@ def main() -> None:
         "launches": launches, **k1,
         "launches_val": val_launches, "launches_evaluate": evaluate_launches,
         "launches_sharded": parallel["launches_sharded"],
+        "launches_gate": gate["launches"],
+        "launches_diagnostics": {k: v["launches"] for k, v in diagnostics.items()},
     }, *convs, *gathers, *probes]
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launch on its path")
     print(json.dumps({"train": train}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"gate": {"train": gate_train,
+                               **{k: gate[k] for k in ("rows", *bf16_gate.SUMMARY)},
+                               "diagnostics": diagnostics, "lpips": lpips}}))
     print(json.dumps({"kernels": kernels}))
+    if not gate["pass"]:
+        raise AssertionError(
+            f"8b: the bf16 gate failed: worst |gt_bf16 - gt_f32| "
+            f"{gate['worst_gate_delta_bf16_trained']:.4f} dB > {gate['gate_bar']} dB")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -3,9 +3,11 @@
 A copy of ``gdb_nerf_tpu/eval/evaluator.py``: metrics on mask-zeroed
 images, optional 10%-border center crop (LLFF/MVSNeRF protocol), depth
 abs-err and accuracy at 2mm/10mm for the five MVSNeRF DTU scans, per-scene
-breakdown printed by ``summarize``.  LPIPS is not ported yet: with
-``eval_lpips`` the metric reads "SKIPPED (weights absent)", as the JAX
-evaluator's does when its weights are absent.
+breakdown printed by ``summarize``.  With ``eval_lpips`` it scores LPIPS
+(``eval/lpips.py``) on the configured ``device``; when the weights file is
+absent the metric reads "SKIPPED (weights absent)", as the JAX evaluator's
+does.  Unlike the JAX evaluator, which skips LPIPS on any exception, only a
+missing weights file skips it here: any other failure of LPIPS raises.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import cv2
 import numpy as np
 
 from gdb_nerf_tpu_torch.eval import metrics
+from gdb_nerf_tpu_torch.eval.lpips import LPIPS
 
 DEPTH_EVAL_SCENES = ("scan1", "scan8", "scan21", "scan103", "scan110")
 
@@ -26,9 +29,11 @@ class Evaluator:
         self.lpips_fn = None
         self.lpips_skipped = False
         if getattr(cfg, "eval_lpips", False):
-            self.lpips_skipped = True
-            print("[evaluator] LPIPS unavailable (not ported; weights absent); "
-                  "skipping lpips metric")
+            try:
+                self.lpips_fn = LPIPS.load_default(getattr(cfg, "device", "cuda"))
+            except FileNotFoundError as e:
+                self.lpips_skipped = True
+                print(f"[evaluator] LPIPS unavailable ({e}); skipping lpips metric")
         self._reset()
         os.makedirs(cfg.result_dir, exist_ok=True)
 

@@ -29,6 +29,13 @@ only its own contiguous range of bundle rows, and the bundle maps are
 all-gathered before the decoder (``parallel/infer.py``).  The FPN, the MVS
 cascade and the decoder stay replicated.  The bundle grid's height must
 divide by the group's size.
+
+``debug_outputs`` (the JAX Network's field of that name, which no config
+sets) adds ``ret["spb"]``: each bundle's adaptive sample count, (B, H/b,
+W/b) int32 in [1, max_num_samples], over every rank's rows under a spatial
+group.  The dense layout pays max_num_samples for every bundle, so
+mean(spb) / max_num_samples is the fill factor that bounds what a compacted
+sample layout could save (``tools/measure_fill.py``).
 """
 
 from __future__ import annotations
@@ -73,6 +80,7 @@ class Network(nn.Module):
         dec_layers: int = 3,
         reweighting: bool = False,
         compute_dtype: torch.dtype = torch.float32,
+        debug_outputs: bool = False,
     ):
         super().__init__()
         b = bundle_size
@@ -87,6 +95,7 @@ class Network(nn.Module):
         self.nerf_chunk_size = nerf_chunk_size
         self.reweighting = reweighting
         self.compute_dtype = compute_dtype
+        self.debug_outputs = debug_outputs
         self.spatial_group = None
         # First FPN level whose scale reaches the bundle-grid resolution.
         lvl = 0
@@ -116,7 +125,7 @@ class Network(nn.Module):
             cast_weights(self, compute_dtype, keep=(self.nerf.sigma[0], self.upsampler.out_conv))
 
     @classmethod
-    def from_config(cls, cfg: Any) -> "Network":
+    def from_config(cls, cfg: Any, debug_outputs: bool = False) -> "Network":
         """Build from a config namespace with fpn / mvs / nerf sections."""
         return cls(
             fpn_base_channels=cfg.fpn.base_channels,
@@ -140,6 +149,7 @@ class Network(nn.Module):
             dec_layers=cfg.nerf.dec_layers,
             reweighting=cfg.nerf.reweighting,
             compute_dtype=getattr(torch, getattr(cfg, "compute_dtype", "float32")),
+            debug_outputs=debug_outputs,
         )
 
     def num_chunks(self, H: int, W: int) -> int:
@@ -165,7 +175,8 @@ class Network(nn.Module):
 
         Returns:
           ret: {'rgb': (B, H, W, 3), 'nerf_depth': (B, H, W), 'mvs_depth':
-            (B, H/b, W/b), 'opacity': (B, H, W)}, float32.
+            (B, H/b, W/b), 'opacity': (B, H, W)}, float32; with
+            ``debug_outputs`` also 'spb' (B, H/b, W/b) int32.
           mvs_depths: the per-stage MVS depths.
           blend_rgbs: the per-stage stage-NeRF renders (B, Hi, Wi, 3), train
             only, else [].
@@ -228,10 +239,10 @@ class Network(nn.Module):
                 rb_c, depth_range[:, :, sl], vol_range[:, :, sl], src_images, pyramid,
                 feat_volume, src_exts, src_ints, inv, train,
             ))
-        feat_map, depth_map, opacity = (torch.cat(t, dim=1) for t in zip(*outs))
+        bundle_maps = [torch.cat(t, dim=1) for t in zip(*outs)]
         if self.spatial_group is not None:
-            feat_map, depth_map, opacity = (
-                gather_rows(t, 1, self.spatial_group) for t in (feat_map, depth_map, opacity))
+            bundle_maps = [gather_rows(t, 1, self.spatial_group) for t in bundle_maps]
+        feat_map, depth_map, opacity = bundle_maps[:3]
         nerf_depth = 1.0 / depth_map if inv else depth_map
 
         # 7. Decode: coarse RDN path + fine member-ray RGB.  The member-RGB
@@ -246,6 +257,8 @@ class Network(nn.Module):
             img = 0.5 * (img + rgb_f)
         maps = resize_bilinear_nchw(torch.stack([nerf_depth, opacity], dim=1), (H_orig, W_orig))
         ret = {"rgb": img, "nerf_depth": maps[:, 0], "mvs_depth": mvs_depth, "opacity": maps[:, 1]}
+        if self.debug_outputs:
+            ret["spb"] = bundle_maps[3]
         return ret, mvs["depths"], mvs["blend_rgbs"]
 
     def _bundle_rows(self, H: int, train: bool) -> tuple[int, int]:
@@ -266,7 +279,8 @@ class Network(nn.Module):
                      src_exts, src_ints, inv, train):
         """Sample, encode, run the NeRF head and composite one slab of bundle
         rows.  Returns feat_map (B, Hc, W, C) float32, depth_map and opacity
-        (B, Hc, W)."""
+        (B, Hc, W), and with ``debug_outputs`` the sample counts (B, Hc, W)
+        int32."""
         dt = self.compute_dtype
         samples = bundles.sample_bundles(
             rb, depth_range, vol_range, self.max_num_samples, self.global_num_depth,
@@ -292,4 +306,7 @@ class Network(nn.Module):
         sigma = sigma.reshape(B, Hc, W, S)
         feat = feat.reshape(B, Hc, W, S, -1)
         weights = render.weights_from_sigma(sigma, samples.valid)
-        return render.composite(weights, feat, samples.z_vals)
+        out = render.composite(weights, feat, samples.z_vals)
+        if self.debug_outputs:
+            out = (*out, samples.samples_per_bundle.to(torch.int32))
+        return out

@@ -11,6 +11,11 @@ torch's conventions; here they are torch's own operators:
 
 The public functions keep the JAX channels-last layout (..., H, W, C) and
 permute to NCHW at the call into torch.
+
+The bilinear resize's CUDA backward adds with atomics; under
+``torch.use_deterministic_algorithms(True)`` (where it raises) a resize
+that needs a gradient takes the same taps by ``index_select`` along each
+axis, whose backward is deterministic there.
 """
 
 from __future__ import annotations
@@ -40,9 +45,26 @@ def resize_bilinear_nchw(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tens
     """``resize_bilinear`` on an NCHW tensor."""
     if tuple(x.shape[-2:]) == tuple(out_hw):
         return x
+    if torch.are_deterministic_algorithms_enabled() and torch.is_grad_enabled() and x.requires_grad:
+        return _bilinear_by_taps(x, out_hw)
     return F.interpolate(
         x, size=tuple(out_hw), mode="bilinear", align_corners=False, antialias=False
     )
+
+
+def _bilinear_by_taps(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """``F.interpolate``'s bilinear taps, along W and then H: dst i samples
+    src max((i + 0.5) * in / out - 0.5, 0) between floor and floor + 1
+    (clamped to the last row)."""
+    for dim, out in ((-1, out_hw[1]), (-2, out_hw[0])):
+        size = x.shape[dim]
+        dst = torch.arange(out, device=x.device, dtype=torch.promote_types(x.dtype, torch.float32))
+        src = torch.clamp_min((dst + 0.5) * (size / out) - 0.5, 0.0)
+        i0 = src.long()
+        frac = (src - i0).to(x.dtype).reshape([out] + [1] * (-dim - 1))
+        i1 = torch.clamp_max(i0 + 1, size - 1)
+        x = x.index_select(dim, i0) * (1.0 - frac) + x.index_select(dim, i1) * frac
+    return x
 
 
 def resize_nearest(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:

@@ -1,8 +1,10 @@
 """Boundaries of the PyTorch port: no jax, the smoke's config, the CPU path.
 
 * Every module of ``gdb_nerf_tpu_torch`` imports (in a fresh interpreter),
-  the training CLI ``train_net``, ``train/*``, ``eval/*``, ``parallel/*``,
-  ``utils/img`` and ``utils/checkpoint`` among them, and the port's CLI loader and one train
+  the training CLI ``train_net``, ``train/*``, ``eval/*`` (``eval/lpips``
+  too), ``parallel/*``, ``utils/img``, ``utils/checkpoint`` and the tools
+  that measure the model (``tools/bf16_gate``, ``tools/measure_fill``,
+  ``tools/measure_lod``) among them, and the port's CLI loader and one train
   step run on the CPU, without pulling jax, flax or the JAX package
   (``gdb_nerf_tpu``) into ``sys.modules``; no source of the port names
   either in an import.
@@ -102,11 +104,12 @@ def test_port_imports_no_jax(fresh_interpreter):
     assert "error" not in report, report.get("error")
     want = {"gdb_nerf_tpu_torch." + m for m in (
         "train_net", "train.losses", "train.optim", "train.recorder", "train.step",
-        "train.trainer", "eval.metrics", "eval.evaluator", "utils.img", "utils.checkpoint",
-        "parallel", "parallel.hosts", "parallel.collectives", "parallel.infer")}
+        "train.trainer", "eval.metrics", "eval.evaluator", "eval.lpips", "utils.img",
+        "utils.checkpoint", "parallel", "parallel.hosts", "parallel.collectives", "parallel.infer",
+        "tools.bf16_gate", "tools.measure_common", "tools.measure_fill", "tools.measure_lod")}
     assert want <= set(report["modules"]), want - set(report["modules"])
     assert not report["bad"], report["bad"]
-    assert len(report["modules"]) >= 66  # every module of the port was imported
+    assert len(report["modules"]) >= 71  # every module of the port was imported
 
 
 def _imported_names(path: str) -> list[str]:
@@ -138,12 +141,20 @@ def _as_dict(ns):
 
 
 def test_smoke_config_literal_equals_yaml():
-    cfg = _as_dict(load_cfg(os.path.join(REPO, "configs", "dtu_eval.yaml")))
-    # Every section Network.from_config reads, each whole.
-    assert set(chip_smoke.DTU_EVAL) == {"network_module", "compute_dtype", "fpn", "mvs", "nerf"}
-    for key, value in chip_smoke.DTU_EVAL.items():
-        assert cfg[key] == value, key
-    assert _as_dict(chip_smoke.namespace(chip_smoke.DTU_EVAL)) == chip_smoke.DTU_EVAL
+    """The dtu_eval literal, and phase 8's llff_eval and nerf_eval literals
+    with each config's protocol size (the measure tools' own)."""
+    from gdb_nerf_tpu_torch.tools.measure_common import PROTOCOL_HW
+
+    assert set(chip_smoke.EVAL_CONFIGS) == set(PROTOCOL_HW)
+    assert chip_smoke.EVAL_CONFIGS["dtu_eval"][0] is chip_smoke.DTU_EVAL
+    for name, (literal, hw) in chip_smoke.EVAL_CONFIGS.items():
+        cfg = _as_dict(load_cfg(os.path.join(REPO, "configs", f"{name}.yaml")))
+        # Every section Network.from_config reads, each whole.
+        assert set(literal) == {"network_module", "compute_dtype", "fpn", "mvs", "nerf"}
+        for key, value in literal.items():
+            assert cfg[key] == value, (name, key)
+        assert _as_dict(chip_smoke.namespace(literal)) == literal
+        assert hw == PROTOCOL_HW[name], name
 
 
 def test_smoke_pretrain_literal_equals_yaml():
@@ -157,6 +168,22 @@ def test_smoke_pretrain_literal_equals_yaml():
     cfg = chip_smoke.train_cfg((64, 64), 2, 3)
     assert (cfg.train.batch_size, cfg.ep_iter, cfg.synthetic_hw) == (2, 3, [64, 64])
     assert cfg.nerf.max_num_samples == 6 and not cfg.nerf.is_adaptive
+
+
+def test_smoke_gate_configs_equal_the_gate_tools():
+    """Phase 8's training and eval configs against tools/bf16_gate.py's
+    (the port's load_cfg of dtu_pretrain.yaml and dtu_eval.yaml with the
+    tool's overrides), in every section that the trainer, the network and
+    the loader read."""
+    from gdb_nerf_tpu_torch.tools import bf16_gate
+
+    net = ("compute_dtype", "fpn", "mvs", "nerf", "synthetic", "synthetic_hw")
+    pairs = ((chip_smoke.gate_train_cfg(), bf16_gate.recipe_cfg(), net + ("train", "ep_iter")),
+             (chip_smoke.eval_cfg("dtu_eval"), bf16_gate.gate_eval_cfg(), net + ("test",)))
+    for smoke, tool, keys in pairs:
+        smoke, tool = _as_dict(smoke), _as_dict(tool)
+        for key in keys:
+            assert smoke[key] == tool[key], key
 
 
 def test_smoke_requests_equal_the_synthetic_loader():

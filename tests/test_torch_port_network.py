@@ -7,7 +7,9 @@
 (b) Against the JAX Network at a small config (B=1, V=2, 64x64,
     num_depth (16, 8), S=3, adaptive) with JAX random weights (BatchNorm
     statistics randomized) carried over by state_dict_from_jax: rgb
-    PSNR >= 60 dB, mvs_depth and nerf_depth relative L1 <= 1e-4.  Again
+    PSNR >= 60 dB, mvs_depth and nerf_depth relative L1 <= 1e-4, and with
+    ``debug_outputs`` on both sides each bundle's sample count ``spb``
+    equal, as integers.  Again
     with the other eval configs' flags in one case: reweighting
     (llff_eval, nerf_eval) with S = 6 (nerf_eval), V = 4, B = 2 and render
     slabs of 256 bundles (nerf_chunk_size) at 64x96.
@@ -141,7 +143,8 @@ def rel_l1(a, b) -> float:
 def assert_port_matches_jax_network(rng, batch, **kw):
     """The JAX Network and the port on ``batch`` with the same random
     weights (BatchNorm statistics randomized): rgb >= 60 dB, mvs_depth and
-    nerf_depth within 1e-4 relative L1."""
+    nerf_depth within 1e-4 relative L1; with ``debug_outputs`` in ``kw``,
+    ``spb`` (the port's int32, the JAX Network's float counts) equal."""
     flags = sorted(k for k in os.environ if k.startswith("GDBN_"))
     assert not flags, f"GDBN_* variables change the JAX reference: {flags}"
     from gdb_nerf_tpu.models.network import Network as JaxNetwork
@@ -160,22 +163,30 @@ def assert_port_matches_jax_network(rng, batch, **kw):
     for key in ("mvs_depth", "nerf_depth"):
         err = rel_l1(ret[key].numpy(), ret_j[key])
         assert err <= 1e-4, f"{key} relative L1 {err:.2e}"
+    assert ("spb" in ret) == ("spb" in ret_j) == bool(kw.get("debug_outputs"))
+    if "spb" in ret:
+        spb_j = np.asarray(ret_j["spb"])
+        assert ret["spb"].dtype == torch.int32 and np.array_equal(spb_j, np.round(spb_j))
+        differ = int((ret["spb"].numpy() != spb_j).sum())
+        assert differ == 0, f"spb differs at {differ} of {spb_j.size} bundles"
 
 
 @torch.no_grad()
 def test_port_matches_jax_network_small_config(rng):
     assert_port_matches_jax_network(
         rng, small_batch(rng), mvs_num_depth=(16, 8), max_num_samples=3, is_adaptive=True,
-        global_num_depth=64)
+        global_num_depth=64, debug_outputs=True)
 
 
 @torch.no_grad()
 def test_port_matches_jax_network_at_the_other_eval_flags(rng):
-    """Reweighting, S = 6, V = 4, B = 2 and slabs of 256 bundles, in one case."""
+    """Reweighting, S = 6, V = 4, B = 2 and slabs of 256 bundles, in one case
+    (``spb`` concatenated over the slabs)."""
     batch = small_batch(rng, V=4, H=64, W=96, B=2)
+    assert Network(nerf_chunk_size=256).num_chunks(32, 48) == 8
     assert_port_matches_jax_network(
         rng, batch, mvs_num_depth=(16, 8), max_num_samples=6, is_adaptive=True,
-        global_num_depth=64, reweighting=True, nerf_chunk_size=256)
+        global_num_depth=64, reweighting=True, nerf_chunk_size=256, debug_outputs=True)
 
 
 @torch.no_grad()

@@ -159,6 +159,58 @@ def test_grid_sample_2d_3d(rng, padding_mode):
           jgs.grid_sample_3d(jnp.asarray(vol), jnp.asarray(g3), padding_mode))
 
 
+def _graph_ops(t: torch.Tensor) -> set:
+    """Names of the autograd nodes behind ``t``."""
+    seen, todo = set(), [t.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is not None and fn not in seen:
+            seen.add(fn)
+            todo.extend(f for f, _ in fn.next_functions)
+    return {fn.name() for fn in seen}
+
+
+@pytest.mark.parametrize("case", ["2d-border", "2d-zeros", "3d-border", "3d-zeros",
+                                  "resize-down", "resize-up", "resize-mixed"])
+def test_deterministic_paths_match_torch(rng, case):
+    """Under ``torch.use_deterministic_algorithms(True)`` a sample or a
+    bilinear resize that needs a gradient takes taps whose backward is
+    deterministic on the card; values and both gradients equal the torch
+    operators' (float64, 1e-12), and no GridSampler/UpsampleBilinear node
+    is left in the graph."""
+    kind, mode = case.split("-")
+    if kind == "resize":
+        src, dst = {"down": ((16, 20), (5, 7)), "up": ((6, 10), (12, 20)),
+                    "mixed": ((5, 7), (16, 9))}[mode]
+        inputs = [rng.standard_normal((3, 4, *src))]
+        fn = lambda x: resize.resize_bilinear_nchw(x, dst)  # noqa: E731
+        banned = "UpsampleBilinear2DBackward0"
+    else:
+        dims = {"2d": (7, 9), "3d": (5, 6, 7)}[kind]
+        inputs = [rng.standard_normal((2, 4, *dims)),
+                  rng.uniform(-1.3, 1.3, (2, 5, 6, len(dims)))]  # includes out-of-range
+        sample = grid_sample.grid_sample_2d_nchw if kind == "2d" else grid_sample.grid_sample_3d_ncdhw
+        fn = lambda x, g: sample(x, g, mode)  # noqa: E731
+        banned = "GridSampler2DBackward0" if kind == "2d" else "GridSampler3DBackward0"
+
+    def run(deterministic):
+        xs = [T(x).requires_grad_(True) for x in inputs]
+        torch.use_deterministic_algorithms(deterministic)
+        try:
+            y = fn(*xs)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        (y * T(cotangent)).sum().backward()
+        return y, [x.grad for x in xs]
+
+    with torch.no_grad():
+        cotangent = rng.standard_normal(tuple(fn(*[T(x) for x in inputs]).shape))
+    (y0, g0), (y1, g1) = run(False), run(True)
+    assert banned in _graph_ops(y0) and banned not in _graph_ops(y1)
+    for a, b in zip([y0, *g0], [y1, *g1]):
+        np.testing.assert_allclose(b.detach().numpy(), a.detach().numpy(), rtol=0, atol=1e-12)
+
+
 # --- cost volume ----------------------------------------------------------
 
 

@@ -19,7 +19,8 @@ running this module as ``__main__``, ``rank_main``) does all of the port's
     bounds hold what float32 summation order alone moves.
 (d) The BatchNorm over ranks alone, on shards of unequal size, against one
     process on the whole batch, forward and backward, 2D and 3D.
-(e) ``ShardedRenderer`` on 2 ranks against ``Renderer`` and the JAX render.
+(e) ``ShardedRenderer`` on 2 ranks against ``Renderer`` and the JAX render,
+    with ``debug_outputs`` on: the gathered ``spb`` equal to both.
 (f) A bundle grid whose height the ranks do not divide raises.
 (g) ``train_net`` under ``torch.distributed.run``: each rank trains on its
     own shard of the training set, rank 0 alone saves, validates and
@@ -178,7 +179,7 @@ def _render(case, group):
     from gdb_nerf_tpu_torch.parallel import ShardedRenderer
     from gdb_nerf_tpu_torch.runtime.renderer import to_device
 
-    net = Network(**case["net"])
+    net = Network(**case["net"], debug_outputs=True)
     net.load_state_dict(case["sd"], strict=True)
     renderer = ShardedRenderer(net, "cpu", group)
     ret, _ = renderer.render(to_device(case["render_batch"], "cpu"))
@@ -357,7 +358,7 @@ def jax_ref(case):
             "batch_stats": new_state.batch_stats})
     params, stats0 = case.variables[""]
     render_j, _, _ = run_jitted(
-        lambda v, b: JaxNetwork(**case.net).apply(v, b, train=False),
+        lambda v, b: JaxNetwork(**case.net, debug_outputs=True).apply(v, b, train=False),
         {"params": params, "batch_stats": stats0},
         jax.tree_util.tree_map(jnp.asarray, case.render_batch))
     return {**steps, "render": jax.tree_util.tree_map(np.asarray, render_j)}
@@ -558,12 +559,13 @@ def test_batchnorm_over_ranks_matches_one_process(case, ranks, key):
 def test_sharded_renderer_matches_renderer_and_jax(case, jax_ref, ranks):
     """(e) Every rank returns the whole image, within 1e-5 of Renderer's on
     the same weights (the bound of tests/test_sharded_infer.py) and of the
-    JAX Network's render; on CPU tensors the bundle head takes its plain
-    version; the network is left unsharded after each render."""
+    JAX Network's render, and the whole ``spb`` map, equal to both; on CPU
+    tensors the bundle head takes its plain version; the network is left
+    unsharded after each render."""
     from gdb_nerf_tpu_torch.models.network import Network
     from gdb_nerf_tpu_torch.runtime.renderer import Renderer, to_device
 
-    net = Network(**case.net)
+    net = Network(**case.net, debug_outputs=True)
     net.load_state_dict(case.sd, strict=True)
     want, _ = Renderer(net, "cpu").render(to_device(case.render_batch, "cpu"))
     for r in ranks:
@@ -572,6 +574,9 @@ def test_sharded_renderer_matches_renderer_and_jax(case, jax_ref, ranks):
             got = r["render"]["ret"][k].numpy()
             np.testing.assert_allclose(got, want[k].numpy(), rtol=1e-5, atol=1e-5, err_msg=k)
             np.testing.assert_allclose(got, jax_ref["render"][k], rtol=1e-5, atol=1e-5, err_msg=k)
+        spb = r["render"]["ret"]["spb"]
+        assert spb.dtype == torch.int32 and torch.equal(spb, want["spb"])
+        np.testing.assert_array_equal(spb.numpy(), jax_ref["render"]["spb"])
 
 
 def test_odd_bundle_grid_height_raises(ranks):
