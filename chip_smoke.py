@@ -103,10 +103,27 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      seeded VGG16-shaped weights on two of (b)'s renders, the card against
      the CPU, then ``run --type evaluate`` with those weights in its
      workspace and (a)'s checkpoint, which must print a numeric lpips;
-  9. one JSON line of the training numbers, one of phase 7's, one of phase
-     8's, one of kernel results (the bundle head's with its launches in 6c,
-     6d, 7c, 8b and 8c), then the JSON result line, or, when the gate of 8b
-     failed, the failure.
+  9. bf16 training on float32 master weights (train/mixed.py): (a) the
+     recipe of 6a (512x640, B = 4, TRAIN_STEPS steps) in bf16, its step time
+     (first excluded) and peak memory beside 6a's float32 numbers; (b)
+     OVERFIT_STEPS steps on one 128x160 batch, the last loss below 0.9 of the
+     first (the JAX package's rule); (d) Trainer.val of (a) through the
+     bf16 head kernel (its launches counted), then the checkpoint of (a)
+     (float32 tensors only) loaded into float32 and bf16 Renderers; (c) one
+     bf16 step at 64x64 on the card against the CPU's, BatchNorm on running
+     statistics, with the card's float32 step as a control that must fail
+     (BF16_* bounds); (e)
+     tools/measure_train_step.py at 512x640, B = 4, --n 4 in float32 and
+     bf16;
+  10. the native image decoder (datasets/native.py over csrc/gdbn_io.cpp,
+     built with g++): 512x640 RGB and RGBA PNGs written with zlib, a resize,
+     a pool of 12 images, a PFM, the decode rate beside cv2's on the same
+     files where cv2 imports; a missing prerequisite of the build is printed
+     on its own line;
+  11. one JSON line of the training numbers, one of phase 7's, one of phase
+     8's, one of phases 9's and 10's, one of kernel results (the bundle
+     head's with its launches in 6c, 6d, 7c, 8b, 8c and 9d), then the JSON
+     result line, or, when the gate of 8b failed, the failure.
 
 Needs one CUDA device, nvcc, torch and numpy; no network, no yaml, and
 nothing of jax or of the JAX package (gdb_nerf_tpu): the config literal and
@@ -765,12 +782,13 @@ def card() -> str:
     ).stdout.strip()
 
 
-def train_cfg(hw, batch_size: int, ep_iter: int) -> SimpleNamespace:
-    """DTU_PRETRAIN on the synthetic loader at ``hw``, with its run
-    directories under build/."""
-    build = os.path.join(REPO, "build", "smoke_train")
+def train_cfg(hw, batch_size: int, ep_iter: int, dtype: str = "float32") -> SimpleNamespace:
+    """DTU_PRETRAIN on the synthetic loader at ``hw`` in compute dtype
+    ``dtype``, with its run directories under build/."""
+    build = os.path.join(REPO, "build", "smoke_train" if dtype == "float32" else f"smoke_train_{dtype}")
     return namespace({
-        **DTU_PRETRAIN, "train": {**DTU_PRETRAIN["train"], "batch_size": batch_size},
+        **DTU_PRETRAIN, "compute_dtype": dtype,
+        "train": {**DTU_PRETRAIN["train"], "batch_size": batch_size},
         "ep_iter": ep_iter, "synthetic": True, "synthetic_hw": list(hw),
         "train_dataset": {"split": "train"}, "test_dataset": {"split": "test"},
         "record_dir": os.path.join(build, "record"), "result_dir": os.path.join(build, "result"),
@@ -787,7 +805,7 @@ def make_trainer(cfg, device="cuda", state=None, group=None):
     from gdb_nerf_tpu_torch.train.trainer import Trainer
 
     torch.manual_seed(0)
-    network = make_network(cfg)
+    network = make_network(cfg, torch.float32)
     if state is not None:
         network.load_state_dict(state, strict=True)
     return Trainer(cfg, network, device, group=group)
@@ -1512,6 +1530,345 @@ def phase_lpips(gate: dict) -> dict:
     return {"pairs": pairs, "evaluate": summary}
 
 
+
+# Phase 9: bf16 training on float32 master weights (train/mixed.py).  9c holds
+# the card's bf16 step to the CPU's bf16 step from the same weights and batch,
+# with BatchNorm on running statistics: on batch statistics, at B = 1, any
+# change of rounding (1 CPU thread against 8) moves the bf16 step's FPN and
+# U-Net gradients by 4.7e-2, on running statistics by 1e-7 (ROADMAP queue 3).
+# The loss within BF16_LOSS_RTOL relative; the gradients of the FPN and
+# U-Nets, and of the rest, each as one vector, no farther from the CPU's bf16
+# ones than BF16_CARD_RATIO times the CPU float32 step's distance from them
+# (0.29 and 0.56 measured, NVIDIA H100 80GB HBM3, 700.00 W; most of the
+# rest's distance lies in the decoder's conv weight gradients, which cuDNN
+# sums in another order than the CPU: the phase prints each group's largest
+# shares).  The card's float32 step is the control that must fail that
+# ratio (1.00 measured).
+BF16_LOSS_RTOL, BF16_CARD_RATIO = 1e-3, 0.75
+OVERFIT_BF16_FALL = 0.9  # 9b: the JAX package's rule (tests/test_train_step.py)
+
+
+def grad_groups(names) -> dict:
+    """Parameter names: the FPN and the cost-regularization U-Nets, and the rest."""
+    deep = [k for k in names if k.startswith(("feature_net.", "depth_net.cost_regs."))]
+    return {"fpn_unets": deep, "rest": [k for k in names if k not in deep]}
+
+
+def group_rel_l2(a: dict, b: dict, names) -> float:
+    x = np.concatenate([np.ravel(a[k]) for k in names]).astype(np.float64)
+    y = np.concatenate([np.ravel(b[k]) for k in names]).astype(np.float64)
+    return float(np.linalg.norm(x - y) / max(np.linalg.norm(y), 1e-30))
+
+
+def phase_train_bf16(f32: dict):
+    """9a. TRAIN_STEPS trainer steps of the dtu_pretrain recipe at 512x640,
+    B = 4, in bf16 on float32 master weights, beside phase 6a's float32
+    numbers from this run.  Returns the trainer, its config and the numbers."""
+    import torch
+
+    from gdb_nerf_tpu_torch.datasets import make_data_loader
+    from gdb_nerf_tpu_torch.train.recorder import Recorder
+
+    B = DTU_PRETRAIN["train"]["batch_size"]
+    cfg = train_cfg((512, 640), B, TRAIN_STEPS, "bfloat16")
+    trainer = make_trainer(cfg)
+    if trainer.mixed is None or any(p.dtype != torch.float32 for p in trainer.network.parameters()):
+        raise AssertionError("9a: the bf16 trainer does not keep float32 master weights")
+    recorder = Recorder(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_epoch(0, make_data_loader(cfg, is_train=True, max_iter=TRAIN_STEPS), recorder)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = list(recorder.loss_stats["loss"].deque)
+    timed = list(trainer.step_ms[1:])
+    smi = card()
+    mean, mean32 = sum(timed) / len(timed), sum(f32["step_ms"]) / len(f32["step_ms"])
+    print(f"[train-bf16] dtu_pretrain 512x640 B={B} bf16 on float32 master weights, "
+          f"{len(trainer.step_ms)} steps: mean step {mean:.2f} ms (first excluded; min "
+          f"{min(timed):.2f}, max {max(timed):.2f}), peak memory {peak:.2f} GiB; float32 (6a, "
+          f"this run): {mean32:.2f} ms, {f32['peak_gib']:.2f} GiB; bf16 / float32 "
+          f"{mean / mean32:.3f} in time, {peak / f32['peak_gib']:.3f} in memory; losses "
+          + " ".join(f"{x:.5f}" for x in losses) + f" on {smi}")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"9a: bf16 train steps: {losses}")
+    return trainer, cfg, {"steps": len(trainer.step_ms), "step_ms": timed, "peak_gib": peak,
+                          "losses": losses, "float32_step_ms_mean": mean32,
+                          "float32_peak_gib": f32["peak_gib"], "card": smi}
+
+
+def phase_overfit_bf16() -> list:
+    """9b. OVERFIT_STEPS bf16 steps on one 128x160 batch: the last loss must
+    fall below OVERFIT_BF16_FALL times the first."""
+    from gdb_nerf_tpu_torch.datasets import make_data_loader
+
+    cfg = train_cfg((128, 160), 4, OVERFIT_STEPS, "bfloat16")
+    trainer = make_trainer(cfg)
+    batch = next(iter(make_data_loader(cfg, is_train=True, max_iter=1)))
+    losses = [trainer.train_step(batch)["loss"] for _ in range(OVERFIT_STEPS)]
+    print(f"[overfit-bf16] 128x160 B=4 bf16, {OVERFIT_STEPS} steps on one batch: loss "
+          + " ".join(f"{x:.5f}" for x in losses) + f"; last / first {losses[-1] / losses[0]:.4f} "
+          f"(must be below {OVERFIT_BF16_FALL})")
+    if not losses[-1] < OVERFIT_BF16_FALL * losses[0]:
+        raise AssertionError(f"9b: the bf16 loss did not fall below {OVERFIT_BF16_FALL} of its "
+                             f"first value: {losses}")
+    return losses
+
+
+def phase_train_bf16_vs_cpu() -> dict:
+    """9c. One bf16 step at 64x64 on the card and on the CPU from the same
+    float32 weights and batch, BatchNorm on running statistics, and one
+    float32 step on each: the card's bf16 loss and gradients against the
+    CPU's bf16 ones (see BF16_CARD_RATIO), the card's float32 step as the
+    control that must fail."""
+    import torch
+
+    from gdb_nerf_tpu_torch.datasets import make_data_loader
+
+    cfg, cfg32 = train_cfg((64, 64), 1, 1, "bfloat16"), train_cfg((64, 64), 1, 1)
+    gpu = make_trainer(cfg)
+    state = {k: v.cpu() for k, v in gpu.network.state_dict().items()}
+    trainers = {"gpu": gpu, "cpu": make_trainer(cfg, "cpu", state),
+                "cpu32": make_trainer(cfg32, "cpu", state), "gpu32": make_trainer(cfg32)}
+    batch = next(iter(make_data_loader(cfg, is_train=True, max_iter=1)))
+    losses, grads = {}, {}
+    for name, t in trainers.items():
+        t.network.eval()
+        if t.mixed is not None:
+            t.mixed.compute.eval()
+        losses[name] = t.train_step(batch)["loss"]
+        grads[name] = {k: p.grad.double().cpu().numpy() for k, p in t.network.named_parameters()}
+    if any(p.grad.dtype != torch.float32 for p in gpu.network.parameters()):
+        raise AssertionError("9c: the master gradients are not float32")
+    loss_err = abs(losses["gpu"] - losses["cpu"])
+    ok = loss_err <= BF16_LOSS_RTOL * abs(losses["cpu"])
+    control_fails = False
+    groups = {}
+    for name, names in grad_groups(grads["cpu"]).items():
+        own = group_rel_l2(grads["cpu32"], grads["cpu"], names)
+        got = group_rel_l2(grads["gpu"], grads["cpu"], names) / own
+        control = group_rel_l2(grads["gpu32"], grads["cpu"], names) / own
+        groups[name] = {"card_ratio": got, "card_f32_ratio": control, "cpu_f32_vs_bf16": own}
+        ok = ok and got <= BF16_CARD_RATIO
+        control_fails = control_fails or control > BF16_CARD_RATIO
+        sq = {k: float(np.sum((grads["gpu"][k] - grads["cpu"][k]) ** 2)) for k in names}
+        top = sorted(sq, key=sq.get, reverse=True)[:3]
+        shares = ", ".join(f"{k} {sq[k] / max(sum(sq.values()), 1e-300):.2f}" for k in top)
+        print(f"[train-bf16-vs-cpu] {name} ({len(names)} tensors): the card's bf16 gradients "
+              f"{got:.4f} of the CPU float32 step's distance ({own:.3e} relative L2) from the "
+              f"CPU's bf16 ones (bound {BF16_CARD_RATIO}); the card's float32 step {control:.4f}; "
+              f"largest shares of the card's squared distance: {shares}")
+    print(f"[train-bf16-vs-cpu] 64x64 B=1, BatchNorm on running statistics: bf16 loss card "
+          f"{losses['gpu']:.8f} cpu {losses['cpu']:.8f} (|d| {loss_err:.2e}, bound "
+          f"{BF16_LOSS_RTOL} relative); float32 card {losses['gpu32']:.8f} cpu "
+          f"{losses['cpu32']:.8f}; within the bounds: {ok}; the float32 control fails: "
+          f"{control_fails}")
+    if not ok or not control_fails:
+        raise AssertionError("9c: the card's bf16 train step disagrees with the CPU's, or the "
+                             "float32 control passes")
+    return {"losses": losses, "groups": groups}
+
+
+def phase_val_bf16(trainer, cfg) -> dict:
+    """9d. Trainer.val of the bf16 training through the bf16 head kernel
+    (its launches counted on the step's bf16 compute copy that val renders
+    through, set to 0 before), then save_model
+    and load_network into float32 and bf16 Renderers (run.build_renderer):
+    the checkpoint's tensors float32, one request rendered in each."""
+    import torch
+
+    from gdb_nerf_tpu_torch import run
+    from gdb_nerf_tpu_torch.datasets import make_data_loader
+    from gdb_nerf_tpu_torch.runtime.registry import make_evaluator
+    from gdb_nerf_tpu_torch.runtime.renderer import to_device
+    from gdb_nerf_tpu_torch.utils.checkpoint import load_network, save_model
+
+    loader = make_data_loader(cfg, is_train=False)
+    net = trainer.mixed.compute  # val renders through the step's bf16 copy
+    net.nerf.kernel.launches = 0
+    result = trainer.val(0, loader, make_evaluator(cfg))
+    launches = net.nerf.kernel.launches
+    print(f"[val-bf16] {len(loader)} requests at 512x640 after 9a: psnr {result['psnr']:.3f}, "
+          f"ssim {result['ssim']:.4f}; rendered through a {net.compute_dtype} eval network "
+          f"(head weights {net.nerf.lr0[0].weight.dtype}); bundle-head kernel launches {launches}")
+    if (trainer.val_network is not net or launches < len(loader)
+            or net.compute_dtype != torch.bfloat16
+            or not np.isfinite(result["psnr"]) or not trainer.network.training):
+        raise AssertionError(f"9d: val: {launches} launches, {net.compute_dtype}, {result}")
+    save_model(trainer.state_dict(), cfg.trained_model_dir, 0, last=True)
+    saved, path = load_network(cfg.trained_model_dir)
+    dtypes = sorted({str(v.dtype) for v in saved.values() if v.is_floating_point()})
+    print(f"[val-bf16] {path}: {len(saved)} tensors, floating dtypes {dtypes}")
+    if dtypes != ["torch.float32"]:
+        raise AssertionError(f"9d: the bf16 training's checkpoint holds {dtypes}")
+    batch = to_device(next(iter(loader)), "cuda")
+    rgb, out = {}, {"launches_val_bf16": launches, "val": result}
+    for dt in ("float32", "bfloat16"):
+        renderer = run.build_renderer(SimpleNamespace(**{**vars(cfg), "compute_dtype": dt}))
+        held = renderer.network.state_dict()
+        if not all(torch.equal(held[k], v.to(held[k].dtype).cuda()) for k, v in saved.items()):
+            raise AssertionError(f"9d: the {dt} renderer does not hold the checkpoint")
+        kernel = renderer.network.nerf.kernel
+        kernel.launches = 0
+        ret, _ = renderer.render(batch)
+        rgb[dt] = ret["rgb"].float().cpu().numpy()
+        out[f"launches_{dt}"] = kernel.launches
+        if kernel.launches < 1 or not np.isfinite(rgb[dt]).all():
+            raise AssertionError(f"9d: the {dt} renderer of the checkpoint: {kernel.launches} "
+                                 f"launches, finite: {np.isfinite(rgb[dt]).all()}")
+    out["bf16_vs_f32_db"] = psnr(rgb["bfloat16"], rgb["float32"])
+    print(f"[val-bf16] the checkpoint in float32 and bf16 Renderers: one request each, bf16 vs "
+          f"float32 {out['bf16_vs_f32_db']:.2f} dB; launches {out['launches_float32']} / "
+          f"{out['launches_bfloat16']}")
+    return out
+
+
+def phase_measure_train_step() -> dict:
+    """9e. tools/measure_train_step.py at dtu_pretrain 512x640, B = 4, --n 4,
+    in float32 and bf16."""
+    from gdb_nerf_tpu_torch.tools import measure_train_step
+
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        free_cuda()
+        cfg = train_cfg((512, 640), DTU_PRETRAIN["train"]["batch_size"], 4, dt)
+        out[dt] = measure_train_step.measure(cfg, "cuda", n=4)
+        if not np.isfinite(out[dt]["warm_loss"]) or out[dt]["step_ms"] <= 0:
+            raise AssertionError(f"9e: measure_train_step {dt}: {out[dt]}")
+    return out
+
+
+# Phase 10: the native image decoder (datasets/native.py over
+# csrc/gdbn_io.cpp), built with g++ from this checkout.  Its images are held
+# to their bytes / 255 (NATIVE_ATOL), the white-background composite to
+# NATIVE_ALPHA_ATOL, a resize to the plain bilinear formula with half-pixel
+# centers to NATIVE_RESIZE_ATOL (tests/test_native_io.py's tolerances).
+NATIVE_ATOL, NATIVE_ALPHA_ATOL, NATIVE_RESIZE_ATOL = 1e-6, 1e-5, 2e-3
+NATIVE_POOL_IMAGES = 12
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """An 8-bit RGB or RGBA PNG written with the standard library's zlib."""
+    import struct
+    import zlib
+
+    h, w, c = img.shape
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(
+            ">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, {3: 2, 4: 6}[c], 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def write_pfm(path: str, depth: np.ndarray) -> None:
+    """A single-channel little-endian PFM (rows bottom-up) written with struct."""
+    import struct
+
+    h, w = depth.shape
+    with open(path, "wb") as f:
+        f.write(f"Pf\n{w} {h}\n-1.0\n".encode())
+        f.write(struct.pack(f"<{h * w}f", *np.flipud(depth).ravel().tolist()))
+
+
+def bilinear_resize(img: np.ndarray, oh: int, ow: int) -> np.ndarray:
+    """The plain bilinear resize with half-pixel centers, edges clamped."""
+    h, w = img.shape[:2]
+
+    def taps(n_out, n_in):
+        x = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+        x0 = np.floor(x).astype(int)
+        return np.clip(x0, 0, n_in - 1), np.clip(x0 + 1, 0, n_in - 1), (x - x0)[:, None]
+
+    y0, y1, wy = taps(oh, h)
+    x0, x1, wx = taps(ow, w)
+    top = img[y0][:, x0] * (1 - wx) + img[y0][:, x1] * wx
+    bot = img[y1][:, x0] * (1 - wx) + img[y1][:, x1] * wx
+    return top * (1 - wy[:, :, None]) + bot * wy[:, :, None]
+
+
+def phase_native() -> dict:
+    """10. Build the port's decoder, decode RGB and RGBA PNGs at 512x640, a
+    resize, a pool of NATIVE_POOL_IMAGES images and a PFM; the decode rate.
+    A missing prerequisite is printed on its own line and skips the phase."""
+    from gdb_nerf_tpu_torch.datasets import native
+    from gdb_nerf_tpu_torch.utils.io import read_pfm
+
+    reason = native.unavailable_reason()
+    if reason is not None:
+        print(f"[native] prerequisite missing: {reason}")
+        return {"skipped": reason}
+    t0 = time.time()
+    lib = native.load()
+    build_s = time.time() - t0
+    print(f"[native] built {native.SOURCE.relative_to(REPO)} with g++ into "
+          f"{native.BUILD_DIR.relative_to(REPO)} and loaded in {build_s:.1f} s ({lib._name})")
+    rng = np.random.default_rng(0)
+    d = os.path.join(REPO, "build", "smoke_native")
+    os.makedirs(d, exist_ok=True)
+    rgb = rng.integers(0, 256, (512, 640, 3), dtype=np.uint8)
+    rgba = rng.integers(0, 256, (512, 640, 4), dtype=np.uint8)
+    p_rgb, p_rgba = os.path.join(d, "rgb.png"), os.path.join(d, "rgba.png")
+    write_png(p_rgb, rgb)
+    write_png(p_rgba, rgba)
+    errs = {}
+    out = native.decode_image(p_rgb)
+    errs["rgb"] = float(np.abs(out - rgb.astype(np.float32) / 255.0).max())
+    a = rgba[..., 3:].astype(np.float32) / 255.0
+    want = rgba[..., :3].astype(np.float32) / 255.0 * a + (1 - a)
+    errs["rgba_white"] = float(np.abs(native.decode_image(p_rgba, white_bg=True) - want).max())
+    small = native.decode_image(p_rgb, (256, 320))
+    errs["resize"] = float(np.abs(small - bilinear_resize(rgb.astype(np.float64) / 255.0, 256,
+                                                           320)).max())
+    paths = []
+    for i in range(NATIVE_POOL_IMAGES):
+        paths.append(os.path.join(d, f"pool{i}.png"))
+        write_png(paths[-1], rng.integers(0, 256, (512, 640, 3), dtype=np.uint8))
+    pool = native.DecodePool(8)
+    t0 = time.time()
+    outs = [pool.submit(p, (512, 640)) for p in paths]
+    pool.wait()
+    pool_s = time.time() - t0
+    t0 = time.time()
+    singles = [native.decode_image(p) for p in paths]
+    single_s = time.time() - t0
+    pool_equal = all(np.array_equal(o, s) for o, s in zip(outs, singles))
+    depth = rng.uniform(400, 900, (128, 160)).astype(np.float32)
+    p_pfm = os.path.join(d, "depth.pfm")
+    write_pfm(p_pfm, depth)
+    ours = native.read_pfm(p_pfm)
+    pfm_equal = np.array_equal(ours, read_pfm(p_pfm)[0]) and np.array_equal(ours, depth)
+    rate_pool, rate_single = len(paths) / pool_s, len(paths) / single_s
+    rate_cv2 = None
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:  # the port's other decode path (datasets/imageio.py), same files
+        t0 = time.time()
+        for p in paths:
+            cv2.cvtColor(cv2.imread(p, cv2.IMREAD_UNCHANGED), cv2.COLOR_BGR2RGB).astype(
+                np.float32) / 255.0
+        rate_cv2 = len(paths) / (time.time() - t0)
+    print(f"[native] 512x640 PNG: RGB max |d| {errs['rgb']:.2e} (bound {NATIVE_ATOL}), RGBA on "
+          f"white {errs['rgba_white']:.2e} (bound {NATIVE_ALPHA_ATOL}), resize to 256x320 against "
+          f"the bilinear formula {errs['resize']:.2e} (bound {NATIVE_RESIZE_ATOL}); the pool's "
+          f"{len(paths)} images equal to decode_image: {pool_equal}; PFM equal to "
+          f"utils/io.read_pfm and to the written depth: {pfm_equal}")
+    cv2_rate = "cv2 not importable" if rate_cv2 is None else f"cv2 {rate_cv2:.1f} images/s"
+    print(f"[native] decode rate at 512x640: {rate_pool:.1f} images/s through a pool of 8 "
+          f"threads, {rate_single:.1f} images/s one at a time ({cv2_rate} one at a time, "
+          f"the same files), on this host")
+    if (errs["rgb"] > NATIVE_ATOL or errs["rgba_white"] > NATIVE_ALPHA_ATOL
+            or errs["resize"] > NATIVE_RESIZE_ATOL or not pool_equal or not pfm_equal):
+        raise AssertionError(f"10: the native decoder disagrees: {errs}, pool {pool_equal}, "
+                             f"pfm {pfm_equal}")
+    return {"build_s": build_s, "max_abs_err": errs, "images_per_s_pool8": rate_pool,
+            "images_per_s_single": rate_single, "cv2_images_per_s_single": rate_cv2}
+
+
 def main() -> None:
     import torch
 
@@ -1548,12 +1905,26 @@ def main() -> None:
     diagnostics = phase_diagnostics(state)
     lpips = phase_lpips(gate)
     print(f"[gate] phase 8 took {time.time() - t0:.1f} s")
+    free_cuda()
+    t0 = time.time()
+    trainer16, cfg16, train16 = phase_train_bf16(train)
+    train16["overfit_losses"] = phase_overfit_bf16()
+    val16 = phase_val_bf16(trainer16, cfg16)
+    del trainer16
+    train16["vs_cpu"] = phase_train_bf16_vs_cpu()
+    train16["val"] = val16
+    train16["measure_train_step"] = phase_measure_train_step()
+    print(f"[train-bf16] phase 9 took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    native = phase_native()
+    print(f"[native] phase 10 took {time.time() - t0:.1f} s")
     kernels = [{
         "name": "bundle_head", "route": "cuda",
         "source": "gdb_nerf_tpu_torch/csrc/bundle_head.cu",
         "replaces": "gdb_nerf_tpu/ops/pallas/fused_nerf.py:89",
         "launches": launches, **k1,
         "launches_val": val_launches, "launches_evaluate": evaluate_launches,
+        "launches_val_bf16": val16["launches_val_bf16"],
         "launches_sharded": parallel["launches_sharded"],
         "launches_gate": gate["launches"],
         "launches_diagnostics": {k: v["launches"] for k, v in diagnostics.items()},
@@ -1566,6 +1937,7 @@ def main() -> None:
     print(json.dumps({"gate": {"train": gate_train,
                                **{k: gate[k] for k in ("rows", *bf16_gate.SUMMARY)},
                                "diagnostics": diagnostics, "lpips": lpips}}))
+    print(json.dumps({"train_bf16": train16, "native": native}))
     print(json.dumps({"kernels": kernels}))
     if not gate["pass"]:
         raise AssertionError(

@@ -1,15 +1,17 @@
-"""Image loading helper: cv2 decode to float32 RGB.
+"""Image loading helper: the port's native decoder where it builds, cv2 otherwise.
 
-The JAX package decodes with its optional native C++ library
-(``native/libgdbn_io.so``) when that is built and with cv2 otherwise; the
-port takes the cv2 path only (the native decoder is still to be ported).
-cv2 is imported where it is used, so that the package imports on a
-machine without it.
+As the JAX package's ``datasets/imageio.py``: ``load_rgb`` decodes with the
+native library (``datasets/native.py``, built from ``csrc/gdbn_io.cpp``)
+when ``native.available()``, and with cv2 where a prerequisite of that
+build is missing.  cv2 is imported where it is used, so that the package
+imports on a machine without it.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from gdb_nerf_tpu_torch.datasets import native
 
 
 def load_rgb(path: str, white_bg: bool = False) -> np.ndarray:
@@ -17,6 +19,8 @@ def load_rgb(path: str, white_bg: bool = False) -> np.ndarray:
 
     white_bg composites an alpha channel over white (NeRF-synthetic).
     """
+    if native.available():
+        return native.decode_image(path, None, white_bg)
     import cv2
 
     if white_bg:

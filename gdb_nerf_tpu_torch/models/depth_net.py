@@ -30,17 +30,20 @@ def _stage_sample_features(feat_volume, img_feat_rgb, world, uvd, src_exts, src_
 
     Args:
       feat_volume: (B, C, D, Hv, Wv) regularized volume.
-      img_feat_rgb: (B, V, F, Hf, Wf) per-view feature ++ rgb maps.
+      img_feat_rgb: (B, V, F, Hf, Wf) per-view feature ++ rgb maps, float32
+        (bf16 features beside float32 rgb, as the JAX concat promotes them).
       world: (B, N, S, 3) sample positions; uvd: (B, N, S, 3) normalized
         volume coordinates.
       src_exts (B, V, 4, 4), src_ints_stage (B, V, 3, 3) at feature
         resolution; tar_exts (B, 4, 4).
 
-    Returns vox_feat (B, N, S, C) and feat_rgb_dir (V, B, N, S, F + 4).
+    Returns vox_feat (B, N, S, C) and feat_rgb_dir (V, B, N, S, F + 4),
+    float32: both tables are sampled in float32 (a bf16 volume from its
+    bf16 values), and the stage NeRF casts them to its compute dtype.
     """
     B, V, _, Hf, Wf = img_feat_rgb.shape
     N, S = world.shape[1:3]
-    vox_feat = grid_sample_3d_ncdhw(feat_volume, uvd, padding_mode="border")
+    vox_feat = grid_sample_3d_ncdhw(feat_volume.float(), uvd, padding_mode="border")
     tar_cam = camera.invert_extrinsics(tar_exts)[:, None, None, :3, 3]
     pts = world.reshape(B, N * S, 3)
     per_view = []
@@ -144,7 +147,7 @@ class DepthNet(nn.Module):
                     small = resize_bilinear_nchw(src_images.reshape(B * V, 3, H_orig, W_orig),
                                                  (hf, wf)).reshape(B, V, 3, hf, wf)
                     out["blend_rgbs"].append(self._render_stage(
-                        idx, feat_volume, torch.cat([feats, small.to(feats.dtype)], dim=2),
+                        idx, feat_volume, torch.cat([feats.float(), small], dim=2),
                         src_exts, src_ints_stage, tar_exts, tar_ints_stage, ci, vol_range,
                     ))
                 up = self.vol_scales[idx + 1] / self.vol_scales[idx]

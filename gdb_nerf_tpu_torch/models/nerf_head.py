@@ -118,16 +118,21 @@ class StageNeRF(ViewAggregator):
         )
 
     def forward(self, vox: torch.Tensor, feat_rgb_dir: torch.Tensor):
-        """Args: vox (..., voxel_dim); feat_rgb_dir (V, ..., F + 4), float32.
-        Returns sigma (...,) and rgb (..., 3)."""
+        """Args: vox (..., voxel_dim); feat_rgb_dir (V, ..., F + 4), any
+        float dtype: both are cast to the head's weights' dtype, as the JAX
+        head casts them to its compute dtype.  Density (its layer kept
+        float32), the softmax over views and the RGB blend run in float32.
+        Returns sigma (...,) and rgb (..., 3), float32."""
+        dt = self.lr0[0].weight.dtype
+        vox, feat_rgb_dir = vox.to(dt), feat_rgb_dir.to(dt)
         img_feat = self.aggregate(feat_rgb_dir)
         vox_img = torch.cat([vox, img_feat], dim=-1)
         x = self.lr0(vox_img)
-        sigma = self.sigma(x)[..., 0]
+        sigma = self.sigma(x.float())[..., 0]
         # color.0 over cat([x, vox_img] (shared), frd (per view)), split.
         n_shared = x.shape[-1] + vox_img.shape[-1]
         w0 = self.color[0].weight
         shared = F.linear(torch.cat([x, vox_img], dim=-1), w0[:, :n_shared], self.color[0].bias)
         h = torch.relu(shared + F.linear(feat_rgb_dir, w0[:, n_shared:]))
-        w = torch.softmax(self.color[3](self.color[2](h)), dim=0)
-        return sigma, (feat_rgb_dir[..., -7:-4] * w).sum(dim=0)
+        w = torch.softmax(self.color[3](self.color[2](h)).float(), dim=0)
+        return sigma, (feat_rgb_dir[..., -7:-4].float() * w).sum(dim=0)

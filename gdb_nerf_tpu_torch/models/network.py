@@ -9,9 +9,12 @@ Dtypes: ``compute_dtype`` bfloat16 runs the feature path (FPN, cost-volume
 features, U-Nets, encoded samples, NeRF head, decoder) in bf16, with that
 path's conv and linear weights cast to bf16 once, when the network is
 built; geometry, cost-volume moments, depth regression, compositing
-weights, sigma and the decoder's final conv stay float32, as do the
-BatchNorm parameters and statistics.  Tables that are bilinearly sampled (source images, mip pyramid,
-volumes) are sampled in float32 from their bf16 values.
+weights, sigma (the bundle head's and the stage NeRFs') and the view
+softmaxes, and the decoder's final conv stay float32, as do the BatchNorm
+parameters and statistics.  Tables that are bilinearly sampled (source
+images, mip pyramid, volumes) are sampled in float32 from their bf16 values.
+Training keeps float32 master weights and runs a bf16 copy of them
+(``train/mixed.py``).
 
 Layout at the boundary matches the JAX Network: the batch holds
 channels-last images ``src_views.rgb`` (B, V, H, W, 3), and ``rgb`` comes
@@ -121,12 +124,28 @@ class Network(nn.Module):
         )
         self.nerf = BundleNeRF(nerf_hidden_dims, feat_dim, mvs_voxel_dim, viewdir_agg)
         self.upsampler = Decoder(feat_dim + 3 + mvs_voxel_dim, 3, 64, dec_layers, b)
-        if compute_dtype != torch.float32:
-            cast_weights(self, compute_dtype, keep=(self.nerf.sigma[0], self.upsampler.out_conv))
+        self.set_compute_dtype(compute_dtype)
+
+    def float32_layers(self) -> tuple:
+        """The layers whose weights stay float32 under a bf16 compute dtype:
+        the density layers (the bundle head's and each stage NeRF's) and the
+        decoder's output conv."""
+        return (self.nerf.sigma[0], self.upsampler.out_conv,
+                *(nerf.sigma[0] for nerf in self.depth_net.nerfs))
+
+    def set_compute_dtype(self, dtype: torch.dtype) -> "Network":
+        """Run the feature path in ``dtype``: every conv and linear weight
+        outside ``float32_layers`` is cast to it, in place."""
+        self.compute_dtype = dtype
+        if dtype != torch.float32:
+            cast_weights(self, dtype, keep=self.float32_layers())
+        return self
 
     @classmethod
-    def from_config(cls, cfg: Any, debug_outputs: bool = False) -> "Network":
-        """Build from a config namespace with fpn / mvs / nerf sections."""
+    def from_config(cls, cfg: Any, debug_outputs: bool = False,
+                    compute_dtype: torch.dtype | None = None) -> "Network":
+        """Build from a config namespace with fpn / mvs / nerf sections;
+        ``compute_dtype`` overrides the config's."""
         return cls(
             fpn_base_channels=cfg.fpn.base_channels,
             fpn_feat_dims=tuple(cfg.fpn.feat_dims),
@@ -148,7 +167,7 @@ class Network(nn.Module):
             nerf_chunk_size=int(cfg.nerf.chunk_size),
             dec_layers=cfg.nerf.dec_layers,
             reweighting=cfg.nerf.reweighting,
-            compute_dtype=getattr(torch, getattr(cfg, "compute_dtype", "float32")),
+            compute_dtype=compute_dtype or getattr(torch, getattr(cfg, "compute_dtype", "float32")),
             debug_outputs=debug_outputs,
         )
 

@@ -106,7 +106,7 @@ def train(cfg, out_dir: str, device, seed: int = 0) -> dict:
     step times (CUDA events, on the card) and the peak device memory."""
     device = torch.device(device)
     torch.manual_seed(seed)
-    trainer = Trainer(cfg, make_network(cfg), device)
+    trainer = Trainer(cfg, make_network(cfg, torch.float32), device)
     loader = make_data_loader(cfg, is_train=True, max_iter=cfg.ep_iter)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)

@@ -14,6 +14,10 @@ and after the backward the gradients are averaged over ranks in one
 all-reduce of a flat buffer, before the clip, as the JAX step ``pmean``s
 before ``optax.clip``; the stats are averaged too.  Every rank then takes
 the same optimizer step.
+
+bf16 (``compute_dtype bfloat16``): the step runs a bf16 copy of float32
+master weights (``train/mixed.py``); the all-reduce, the clip and the
+optimizer act on the master's float32 gradients.
 """
 
 from __future__ import annotations
@@ -82,15 +86,19 @@ def make_loss_fn(network, loss_weight, use_perceptual: bool = True):
 
 
 def make_train_step(network, optimizer, scheduler, loss_weight, use_perceptual: bool = True,
-                    group=None):
+                    group=None, mixed=None):
     """``step(batch) -> stats``: one update of ``network``'s parameters.
 
     Every parameter takes part in the update: one that the loss does not
     reach (the FPN's full-resolution head at bundle size 2) gets a zero
     gradient, as under optax, so that a weight decay reaches it too.  With
     a process ``group``, ``batch`` is this rank's shard and the gradients
-    and stats are averaged over the group's ranks."""
-    loss_fn = make_loss_fn(network, loss_weight, use_perceptual)
+    and stats are averaged over the group's ranks.  With ``mixed``
+    (``train.mixed.MixedPrecision`` over ``network``), the forward and
+    backward run on its bf16 copy and everything after the backward acts on
+    ``network``'s float32 gradients, in the JAX step's order."""
+    loss_fn = make_loss_fn(network if mixed is None else mixed.compute, loss_weight,
+                           use_perceptual)
     params = [p for p in network.parameters() if p.requires_grad]
 
     def step(batch):
@@ -99,8 +107,12 @@ def make_train_step(network, optimizer, scheduler, loss_weight, use_perceptual: 
                 p.grad = torch.zeros_like(p)
             else:
                 p.grad.zero_()
+        if mixed is not None:
+            mixed.refresh()
         loss, stats = loss_fn(batch)
         loss.backward()
+        if mixed is not None:
+            mixed.gather_grads()
         if group is not None:
             all_reduce_mean_([p.grad for p in params], group)
             stats = mean_over_ranks(stats, group)

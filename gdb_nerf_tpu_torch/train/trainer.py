@@ -4,10 +4,19 @@ Port of ``gdb_nerf_tpu/train/trainer.py``: per iteration the device
 transfer, the train step and smoothed logging with eta, LR and peak
 memory; ``val`` runs the evaluator through the eval ``Renderer`` (the bundle
 head's kernel on the card) and puts the network back into training mode.
-Checkpoints are saved by ``train_net.py`` from ``state_dict``.  Training
-runs in float32; on the card each step is also timed with CUDA events
-(``step_ms``).  With a process ``group`` the trainer takes data-parallel
-steps (``train/step.py``): its BatchNorms span the group's ranks, and
+Checkpoints are saved by ``train_net.py`` from ``state_dict``.  On the card
+each step is also timed with CUDA events (``step_ms``).
+
+``network`` holds float32 weights (``runtime.registry.make_network(cfg,
+torch.float32)``).  Under ``compute_dtype bfloat16`` they are the master
+weights of a bf16 step (``train/mixed.py``): ``state_dict`` stays float32
+under the reference's keys, and ``val`` renders through the step's bf16
+compute copy with the master's latest weights rounded in, the network an
+eval of the checkpoint builds (``val_network``), so on the card its head
+runs the bf16 kernel.
+
+With a process ``group`` the trainer takes data-parallel steps
+(``train/step.py``): its BatchNorms span the group's ranks, and
 ``step_ms`` and ``memory_mb`` stay this rank's own.
 """
 
@@ -21,24 +30,33 @@ import torch
 
 from gdb_nerf_tpu_torch.models.layers import set_batchnorm_group
 from gdb_nerf_tpu_torch.runtime.renderer import Renderer, set_float32_numerics, to_device
+from gdb_nerf_tpu_torch.train.mixed import MixedPrecision
 from gdb_nerf_tpu_torch.train.optim import make_optimizer
 from gdb_nerf_tpu_torch.train.step import make_train_step, to_device_train
 
 
 class Trainer:
     def __init__(self, cfg, network, device, use_perceptual: bool = True, group=None):
-        if network.compute_dtype != torch.float32:
+        if any(p.dtype != torch.float32 for p in network.parameters()):
             raise ValueError(
-                f"training runs in float32; compute_dtype {network.compute_dtype} is not "
-                "supported by the trainer (bf16 training is a later item)")
+                "the trainer keeps float32 master weights; build the network with "
+                "make_network(cfg, torch.float32), not with weights already cast to "
+                f"{network.compute_dtype}")
         self.cfg = cfg
         self.device = torch.device(device)
-        self.network = set_batchnorm_group(network.to(self.device).train(), group)
+        dtype = getattr(torch, getattr(cfg, "compute_dtype", "float32"))
+        self.network = network.to(self.device).train()
+        self.mixed = None if dtype == torch.float32 else MixedPrecision(self.network, dtype)
+        set_batchnorm_group(self.network, group)
+        if self.mixed is not None:
+            set_batchnorm_group(self.mixed.compute.train(), group)
         set_float32_numerics(tf32=False)
         self.optimizer, self.scheduler = make_optimizer(cfg, self.network.parameters())
         self.step_fn = make_train_step(self.network, self.optimizer, self.scheduler,
-                                       list(cfg.mvs.loss_weight), use_perceptual, group)
+                                       list(cfg.mvs.loss_weight), use_perceptual, group,
+                                       self.mixed)
         self.step_ms: list[float] = []  # CUDA-event time of each step on the card
+        self.val_network = self.network  # the network the last val rendered through
 
     @property
     def step(self) -> int:
@@ -90,7 +108,12 @@ class Trainer:
     def val(self, epoch: int, data_loader, evaluator, recorder=None) -> dict:
         """Evaluate every batch of ``data_loader`` in eval mode; returns the
         evaluator's summary."""
-        renderer = Renderer(self.network, self.device)
+        if self.mixed is None:
+            self.val_network = self.network
+        else:
+            self.mixed.refresh()
+            self.val_network = self.mixed.compute
+        renderer = Renderer(self.val_network, self.device)
         image_stats = {}
         try:
             for batch in data_loader:
@@ -105,6 +128,7 @@ class Trainer:
                     }
         finally:
             self.network.train()
+            self.val_network.train()
         result = evaluator.summarize()
         if recorder is not None:
             recorder.record("val", epoch, result, image_stats, batched=True)

@@ -53,7 +53,7 @@ def train(cfg) -> None:
 def _train(cfg, device, group) -> None:
     main = hosts.is_main()
     torch.manual_seed(0)
-    network = make_network(cfg)
+    network = make_network(cfg, torch.float32)
     trainer = Trainer(cfg, network, device, group=group)
     recorder = Recorder(cfg, enabled=main)
     evaluator = None if cfg.skip_eval or not main else make_evaluator(cfg)

@@ -83,6 +83,40 @@ class _Inverter:
         self.sd[f"{tname}.bias"] = self.p(f"{bias_from}/bias")
 
 
+def _head(c: _Inverter, j: str, t: str, weight_name: str, j0_shared: str, j0_view: str) -> None:
+    """The aggregation trunk, lr0, sigma and the first layer of the view
+    weights of the JAX head ``j`` into the port's head ``t``."""
+    agg = c.params
+    for k in f"{j}/agg".split("/"):
+        agg = agg[k]
+    if "view_fc" in agg:
+        c.dense(f"{j}/agg/view_fc", f"{t}.view_fc.0")
+    c.dense_join(f"{t}.global_fc.0", [
+        (f"{j}/agg/global_fc_pv", False),
+        (f"{j}/agg/global_fc_var", False),
+        (f"{j}/agg/global_fc_mean", True),
+    ])
+    c.dense(f"{j}/agg/agg_w_fc", f"{t}.agg_w_fc.0")
+    c.dense(f"{j}/agg/fc", f"{t}.fc.0")
+    c.dense(f"{j}/lr0", f"{t}.lr0.0")
+    c.dense(f"{j}/sigma", f"{t}.sigma.0")
+    c.dense_join(f"{t}.{weight_name}.0", [(f"{j}/{j0_shared}", True), (f"{j}/{j0_view}", False)])
+
+
+def _stage_nerf(c: _Inverter, j: str, t: str) -> None:
+    """The JAX ``StageNeRF`` at ``j`` into the port's ``StageNeRF`` at ``t``."""
+    _head(c, j, t, "color", "color0_shared", "color0_view")
+    c.dense(f"{j}/color1", f"{t}.color.2")
+
+
+def stage_nerf_from_jax(params: dict) -> dict:
+    """The port's ``StageNeRF`` state dict from a JAX ``StageNeRF``'s params."""
+    c = _Inverter({"params": {"stage": params}})
+    _stage_nerf(c, "stage", "stage")
+    return {k.removeprefix("stage."): torch.from_numpy(np.array(v, order="C"))
+            for k, v in c.sd.items()}
+
+
 def state_dict_from_jax(variables: dict, num_stages: int = 2, dec_layers: int = 3) -> dict:
     """The port's state dict (torch tensors) from a JAX Network's variables."""
     c = _Inverter(variables)
@@ -107,29 +141,11 @@ def state_dict_from_jax(variables: dict, num_stages: int = 2, dec_layers: int = 
         c.conv(f"{j}/Conv_0", f"{t}.feat_head", bias=False)
         c.conv(f"{j}/Conv_1", f"{t}.prob_head", bias=False)
 
-    def head(j: str, t: str, weight_name: str, j0_shared: str, j0_view: str) -> None:
-        agg = c.params
-        for k in f"{j}/agg".split("/"):
-            agg = agg[k]
-        if "view_fc" in agg:
-            c.dense(f"{j}/agg/view_fc", f"{t}.view_fc.0")
-        c.dense_join(f"{t}.global_fc.0", [
-            (f"{j}/agg/global_fc_pv", False),
-            (f"{j}/agg/global_fc_var", False),
-            (f"{j}/agg/global_fc_mean", True),
-        ])
-        c.dense(f"{j}/agg/agg_w_fc", f"{t}.agg_w_fc.0")
-        c.dense(f"{j}/agg/fc", f"{t}.fc.0")
-        c.dense(f"{j}/lr0", f"{t}.lr0.0")
-        c.dense(f"{j}/sigma", f"{t}.sigma.0")
-        c.dense_join(f"{t}.{weight_name}.0", [(f"{j}/{j0_shared}", True), (f"{j}/{j0_view}", False)])
-
     for s in range(num_stages - 1):
         j, t = f"depth_net/stage_nerf_{s}", f"depth_net.nerfs.{s}"
-        head(j, t, "color", "color0_shared", "color0_view")
-        c.dense(f"{j}/color1", f"{t}.color.2")
+        _stage_nerf(c, j, t)
 
-    head("nerf", "nerf", "weight", "weight0_shared", "weight0_view")
+    _head(c, "nerf", "nerf", "weight", "weight0_shared", "weight0_view")
     c.dense("nerf/weight1", "nerf.weight.2")
     c.dense("nerf/feat_head", "nerf.feat_head.0")
 

@@ -27,6 +27,7 @@ from gdb_nerf_tpu.ops.pallas.fused_nerf import fused_bundle_nerf
 from gdb_nerf_tpu_torch.kernels import bundle_head
 from gdb_nerf_tpu_torch.kernels.measure import bound_ms
 from gdb_nerf_tpu_torch.models.nerf_head import BundleNeRF
+from tests.test_torch_port_network import run_jitted
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from convert_checkpoint import Converter  # noqa: E402
@@ -76,9 +77,9 @@ def test_reference_matches_flax_head_and_pallas_kernel(rng, V):
     sigma, feat = bundle_head.bundle_head_reference(
         head, torch.from_numpy(vox), torch.from_numpy(payload), torch.from_numpy(frd))
     params = jax_params(head)
-    sj, fj = JaxBundleNeRF(hid_dim=HID, voxel_dim=VOX).apply(
-        {"params": params}, jnp.asarray(vox)[None], jnp.asarray(payload)[None],
-        jnp.asarray(frd)[None])
+    sj, fj = run_jitted(lambda p, v, pl, f: JaxBundleNeRF(hid_dim=HID, voxel_dim=VOX).apply(
+        {"params": p}, v[None], pl[None], f[None]), params, jnp.asarray(vox),
+        jnp.asarray(payload), jnp.asarray(frd))
     sp, fp = fused_bundle_nerf(params, jnp.asarray(vox), jnp.asarray(payload),
                                jnp.asarray(frd), interpret=True)
     for s_ref, f_ref in ((sj[0], fj[0]), (sp, fp)):

@@ -4,8 +4,10 @@
 of the JAX package's modules of the same names; these tests hold them equal:
 ``load_cfg`` on every eval config, the synthetic loader's batches bit for
 bit, and the DTU, LLFF and NeRF readers' items on miniature on-disk trees of
-the kind ``tests/test_reader_fixtures.py`` builds.  The JAX readers run with
-their native decoder switched off, so both sides decode with cv2.
+the kind ``tests/test_reader_fixtures.py`` builds.  Both packages' readers
+run with their native decoders switched off, so both sides decode with cv2
+(``tests/test_torch_port_native.py`` holds the port's decoder to cv2 and to
+the JAX package's).
 """
 
 import json
@@ -24,7 +26,7 @@ from gdb_nerf_tpu.datasets.llff import Dataset as JaxLLFF
 from gdb_nerf_tpu.datasets.nerf import Dataset as JaxNeRF
 from gdb_nerf_tpu.utils.io import write_pfm
 from gdb_nerf_tpu_torch.config import load_cfg
-from gdb_nerf_tpu_torch.datasets import loader
+from gdb_nerf_tpu_torch.datasets import imageio, loader
 from gdb_nerf_tpu_torch.datasets import make_data_loader
 from gdb_nerf_tpu_torch.datasets.dtu import Dataset as DTU
 from gdb_nerf_tpu_torch.datasets.llff import Dataset as LLFF
@@ -157,6 +159,7 @@ def _nerf_tree(tmp_path):
 @pytest.mark.parametrize("reader", ["dtu", "llff", "nerf"])
 def test_readers_equal_the_jax_package(reader, tmp_path, monkeypatch):
     monkeypatch.setattr(jax_imageio.native, "available", lambda: False)
+    monkeypatch.setattr(imageio.native, "available", lambda: False)
     tree, ours, theirs = {"dtu": (_dtu_tree, DTU, JaxDTU), "llff": (_llff_tree, LLFF, JaxLLFF),
                           "nerf": (_nerf_tree, NeRF, JaxNeRF)}[reader]
     kwargs, materialize = tree(tmp_path)

@@ -1,13 +1,15 @@
 """Boundaries of the PyTorch port: no jax, the smoke's config, the CPU path.
 
 * Every module of ``gdb_nerf_tpu_torch`` imports (in a fresh interpreter),
-  the training CLI ``train_net``, ``train/*``, ``eval/*`` (``eval/lpips``
-  too), ``parallel/*``, ``utils/img``, ``utils/checkpoint`` and the tools
-  that measure the model (``tools/bf16_gate``, ``tools/measure_fill``,
-  ``tools/measure_lod``) among them, and the port's CLI loader and one train
-  step run on the CPU, without pulling jax, flax or the JAX package
-  (``gdb_nerf_tpu``) into ``sys.modules``; no source of the port names
-  either in an import.
+  the training CLI ``train_net``, ``train/*`` (``train/mixed`` too),
+  ``eval/*`` (``eval/lpips`` too), ``parallel/*``, ``utils/img``,
+  ``utils/checkpoint``, ``datasets/native`` and the tools that measure the
+  model (``tools/bf16_gate``, ``tools/measure_fill``, ``tools/measure_lod``,
+  ``tools/measure_train_step``) among them, and the port's CLI loader and
+  one train step run on the CPU, without pulling jax, flax or the JAX
+  package (``gdb_nerf_tpu``) into ``sys.modules``; no source of the port
+  names either in an import, or a path into the JAX package's ``native``
+  folder.
 * ``chip_smoke.py`` imports neither jax nor the JAX package: its dtu_eval
   config literal equals ``load_cfg("configs/dtu_eval.yaml")`` in every
   section the network reads, its dtu_pretrain literal equals
@@ -22,6 +24,7 @@
 """
 
 import os
+import re
 import subprocess
 import sys
 from types import SimpleNamespace
@@ -80,7 +83,7 @@ _FRESH = (
     "'[64, 64]', 'train.num_workers', '0', 'train.batch_size', '1', 'mvs.num_depth', "
     "'[16, 8]'])\n"
     "    batch = next(iter(make_data_loader(cfg, is_train=True, max_iter=1)))\n"
-    "    assert torch.isfinite(torch.tensor(Trainer(cfg, make_network(cfg), 'cpu')"
+    "    assert torch.isfinite(torch.tensor(Trainer(cfg, make_network(cfg, torch.float32), 'cpu')"
     ".train_step(batch)['loss']))\n"
     "    report['port'] = {'modules': mods, 'bad': forbidden(before)}\n"
     "except Exception:\n"
@@ -106,10 +109,11 @@ def test_port_imports_no_jax(fresh_interpreter):
         "train_net", "train.losses", "train.optim", "train.recorder", "train.step",
         "train.trainer", "eval.metrics", "eval.evaluator", "eval.lpips", "utils.img",
         "utils.checkpoint", "parallel", "parallel.hosts", "parallel.collectives", "parallel.infer",
-        "tools.bf16_gate", "tools.measure_common", "tools.measure_fill", "tools.measure_lod")}
+        "tools.bf16_gate", "tools.measure_common", "tools.measure_fill", "tools.measure_lod",
+        "train.mixed", "tools.measure_train_step", "datasets.native")}
     assert want <= set(report["modules"]), want - set(report["modules"])
     assert not report["bad"], report["bad"]
-    assert len(report["modules"]) >= 71  # every module of the port was imported
+    assert len(report["modules"]) >= 74  # every module of the port was imported
 
 
 def _imported_names(path: str) -> list[str]:
@@ -121,17 +125,33 @@ def _imported_names(path: str) -> list[str]:
     return names
 
 
+# A path into the JAX package's native library folder (``native/``, or a
+# "native" path component, or its library by name) in a source of the port.
+_NATIVE_PATH = re.compile(r"""(?<![\w./-])native/|["']native["']|libgdbn_io\.so""")
+
+
 def test_port_sources_import_nothing_of_the_jax_package():
     """Every import of every source of the port, at any depth (inside
-    functions too), and every importlib target of its dataset registry."""
+    functions too), and every importlib target of its dataset registry; no
+    source of the port (Python, CUDA or C++) names a path into the JAX
+    package's native library folder: the port builds its own decoder."""
     from gdb_nerf_tpu_torch.datasets import loader
 
     root = os.path.join(REPO, "gdb_nerf_tpu_torch")
-    paths = [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs if f.endswith(".py")]
+    files = [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs]
+    paths = [p for p in files if p.endswith(".py")]
     assert len(paths) >= 30
     for path in paths:
         bad = [n for n in _imported_names(path) if n.split(".")[0] in FORBIDDEN]
         assert not bad, (path, bad)
+    sources = [p for p in files if p.endswith((".py", ".cu", ".cpp"))]
+    assert os.path.join(root, "csrc", "gdbn_io.cpp") in sources
+    for path in sources:
+        found = _NATIVE_PATH.findall(open(path, encoding="utf-8").read())
+        assert not found, (path, found)
+    assert _NATIVE_PATH.search('os.path.join(repo, "native", "libgdbn_io.so")')
+    assert _NATIVE_PATH.search("see native/build.sh")
+    assert not _NATIVE_PATH.search("build/gdbn_io/ datasets/native.py")
     for target in loader._DATASETS.values():
         assert target.startswith("gdb_nerf_tpu_torch."), target
 

@@ -106,22 +106,40 @@ def randomize_batch_stats(tree, rng):
 XLA_O0 = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
 
 
-def run_jitted(fn, *args):
-    """``jax.jit(fn)(*args)``, compiled with ``XLA_O0``."""
-    return jax.jit(fn).lower(*args).compile(XLA_O0)(*args)
+def run_jitted(fn, *args, options=None):
+    """``jax.jit(fn)(*args)``, compiled with ``XLA_O0`` and ``options``."""
+    return jax.jit(fn).lower(*args).compile({**XLA_O0, **(options or {})})(*args)
+
+
+_TREES: dict = {}
 
 
 def jax_variables(jnet, jbatch, rng) -> dict:
     """Random weights in the JAX Network's variable tree, without compiling
     its init: the tree (of ``init(..., train=True)``, so it holds the stage
     NeRF; traced on the first item in one slab, which changes no shape in
-    it) comes from ``jax.eval_shape``; each kernel is drawn as flax's
-    lecun_normal draws it (a normal truncated at two deviations, scaled to
-    variance 1 / fan_in), biases are 0 and BatchNorm scales 1, as flax
-    initializes them; the BatchNorm statistics are randomized."""
-    one = dataclasses.replace(jnet, nerf_chunk_size=0)
-    tree = jax.eval_shape(lambda b: one.init(jax.random.PRNGKey(0), b, train=True),
-                          jax.tree_util.tree_map(lambda a: a[:1], jbatch))
+    it) comes from ``jax.eval_shape``, traced once a process for each set
+    of variable paths and shapes (read, without a trace, from the port's
+    network of the same flags through ``tools/convert_checkpoint.py``:
+    flags that change no shape share a tree); each kernel is drawn as
+    flax's lecun_normal draws it (a normal truncated at two deviations,
+    scaled to variance 1 / fan_in), biases are 0 and BatchNorm scales 1, as
+    flax initializes them; the BatchNorm statistics are randomized."""
+    import inspect
+
+    from tools.convert_checkpoint import convert
+
+    flags = {k: getattr(jnet, k) for k in inspect.signature(Network).parameters
+             if k != "compute_dtype" and hasattr(jnet, k)}
+    converted = convert({k: v.numpy() for k, v in Network(**flags).state_dict().items()},
+                        num_stages=len(jnet.mvs_vol_levels), dec_layers=jnet.dec_layers)
+    key = tuple((jax.tree_util.keystr(p), np.shape(v))
+                for p, v in jax.tree_util.tree_flatten_with_path(converted)[0])
+    if key not in _TREES:
+        one = dataclasses.replace(jnet, nerf_chunk_size=0)
+        _TREES[key] = jax.eval_shape(lambda b: one.init(jax.random.PRNGKey(0), b, train=True),
+                                     jax.tree_util.tree_map(lambda a: a[:1], jbatch))
+    tree = _TREES[key]
 
     def draw(path, leaf):
         if path[-1].key != "kernel":
@@ -133,6 +151,25 @@ def jax_variables(jnet, jbatch, rng) -> dict:
 
     return {"params": jax.tree_util.tree_map_with_path(draw, tree["params"]),
             "batch_stats": randomize_batch_stats(tree["batch_stats"], rng)}
+
+
+_INITS: dict = {}
+
+
+def jax_init(jnet, inputs, rng):
+    """The JAX Network's own initial parameters (seed 0) and randomized
+    BatchNorm statistics.  The parameters do not depend on the batch's
+    shapes, so each network's are computed once a process (the train-step
+    and 2-rank cases share them, through this module's ``tests.`` name).
+    Not ``jax_variables``: with its numpy draw of the same distribution the
+    gradients of a train step differ from the JAX package's by up to 5.9e-3
+    relative L2 (ROADMAP queue 3)."""
+    key = repr(jnet)
+    if key not in _INITS:
+        _INITS[key] = jax.tree_util.tree_map(np.asarray, run_jitted(
+            lambda k, b: jnet.init(k, b, train=True), jax.random.PRNGKey(0), inputs))
+    variables = _INITS[key]
+    return variables["params"], randomize_batch_stats(variables["batch_stats"], rng)
 
 
 def rel_l1(a, b) -> float:
@@ -192,8 +229,9 @@ def test_port_matches_jax_network_at_the_other_eval_flags(rng):
 @torch.no_grad()
 def test_bf16_network_casts_its_feature_path_once(rng):
     """compute_dtype bf16: the feature path's conv and linear weights are
-    bf16 from the start (no cast per call); BatchNorm, the density layer and
-    the decoder's output conv stay float32.  A float32 state dict loads into
+    bf16 from the start (no cast per call); BatchNorm, the density layers
+    (the bundle head's and each stage NeRF's) and the decoder's output conv
+    stay float32.  A float32 state dict loads into
     it strictly, and its render stays within 45 dB of the float32 one (59 dB
     measured at this size)."""
     kw = dict(mvs_num_depth=(16, 8), max_num_samples=3, is_adaptive=True, global_num_depth=64)
@@ -204,7 +242,8 @@ def test_bf16_network_casts_its_feature_path_once(rng):
     bn = (torch.nn.BatchNorm2d, torch.nn.BatchNorm3d)
     expect_fp32 = {f"{name}.{p}" for name, m in net16.named_modules() if isinstance(m, bn)
                    for p in ("weight", "bias", "running_mean", "running_var")}
-    expect_fp32 |= {f"{m}.{p}" for m in ("nerf.sigma.0", "upsampler.out_conv")
+    expect_fp32 |= {f"{m}.{p}" for m in ("nerf.sigma.0", "depth_net.nerfs.0.sigma.0",
+                                         "upsampler.out_conv")
                     for p in ("weight", "bias")}
     floats = {k: v.dtype for k, v in net16.state_dict().items() if v.is_floating_point()}
     assert {k for k, dt in floats.items() if dt == torch.float32} == expect_fp32

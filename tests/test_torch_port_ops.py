@@ -4,7 +4,9 @@ The same numpy inputs (from a seed) go through the JAX function on the CPU
 and its counterpart in ``gdb_nerf_tpu_torch.ops``.  Float32; tolerance
 atol 1e-5 / rtol 1e-4 unless a test states another with its reason.
 JAX functions are per-element, so they run on element 0 of a batch of 1
-(or under jax.vmap).
+(or under jax.vmap), compiled once a call through ``run_jitted`` (one
+compile of the whole reference costs a fraction of compiling each of its
+ops on its own); ``get_depth_values`` runs as it is, held bit for bit.
 """
 
 import os
@@ -81,16 +83,19 @@ def test_camera_inverses_and_radius(rng):
     ext, K = sc["src_views"]["extrinsics"][0, 1], sc["src_views"]["intrinsics"][0, 1]
     K = K.copy()
     K[0, 1] = 0.3  # exercise the skew term
-    close(camera.invert_extrinsics(T(ext)), jcamera.invert_extrinsics(jnp.asarray(ext)))
-    close(camera.invert_intrinsics(T(K)), jcamera.invert_intrinsics(jnp.asarray(K)))
-    close(camera.pixel_radius(T(K)), jcamera.pixel_radius(jnp.asarray(K)))
+    want = run_jitted(lambda e, k: (jcamera.invert_extrinsics(e), jcamera.invert_intrinsics(k),
+                                    jcamera.pixel_radius(k)), jnp.asarray(ext), jnp.asarray(K))
+    close(camera.invert_extrinsics(T(ext)), want[0])
+    close(camera.invert_intrinsics(T(K)), want[1])
+    close(camera.pixel_radius(T(K)), want[2])
 
 
 def test_camera_build_rays(rng):
     sc = make_scene(rng)
     ext, K = sc["tar_views"]["extrinsics"], sc["tar_views"]["intrinsics"]
     got = camera.build_rays(T(ext), T(K), 12, 20)
-    want = jcamera.build_rays(jnp.asarray(ext[0]), jnp.asarray(K[0]), 12, 20)
+    want = run_jitted(lambda e, k: jcamera.build_rays(e, k, 12, 20), jnp.asarray(ext[0]),
+                      jnp.asarray(K[0]))
     for g, w in zip((got[0][0], got[1][0], got[2], got[3][0]), want):
         close(g, w)
 
@@ -101,12 +106,14 @@ def test_camera_projections(rng):
     te, ti = sc["tar_views"]["extrinsics"][0], sc["tar_views"]["intrinsics"][0]
     xyz = rng.uniform(-1, 1, (50, 3)).astype(np.float32) + np.array([0, 0, 4], np.float32)
     got = camera.project_points(T(xyz), T(se[0]), T(si[0]))
-    want = jcamera.project_points(jnp.asarray(xyz), jnp.asarray(se[0]), jnp.asarray(si[0]))
+    want, sweep = run_jitted(
+        lambda x, se, si, te, ti: (jcamera.project_points(x, se[0], si[0]), jax.vmap(
+            lambda e, k: jcamera.plane_sweep_projection(e, k, te, ti))(se, si)),
+        jnp.asarray(xyz), jnp.asarray(se), jnp.asarray(si), jnp.asarray(te), jnp.asarray(ti))
     for g, w in zip(got, want):
         close(g, w, atol=1e-4)  # pixel coordinates ~50: 1e-4 px is ~2e-6 relative
     close(
-        camera.plane_sweep_projection(T(se), T(si), T(te)[None], T(ti)[None]),
-        jax.vmap(lambda e, k: jcamera.plane_sweep_projection(e, k, te, ti))(se, si),
+        camera.plane_sweep_projection(T(se), T(si), T(te)[None], T(ti)[None]), sweep,
         atol=1e-4,  # entries up to ~60 (focal lengths): float32 inverse rounding
     )
 
@@ -118,16 +125,19 @@ def test_camera_projections(rng):
                                            ((8, 10), (16, 20)), ((10, 12), (7, 9))])
 def test_resize_bilinear(rng, src_hw, dst_hw):
     img = rng.standard_normal((*src_hw, 5)).astype(np.float32)
-    close(resize.resize_bilinear(T(img), dst_hw), jresize.resize_bilinear(jnp.asarray(img), dst_hw))
+    close(resize.resize_bilinear(T(img), dst_hw),
+          run_jitted(lambda x: jresize.resize_bilinear(x, dst_hw), jnp.asarray(img)))
 
 
 def test_resize_nearest_and_pixel_shuffle(rng):
     d = rng.standard_normal((2, 9, 14)).astype(np.float32)
-    close(resize.resize_nearest(T(d), (6, 5)),
-          np.stack([jresize.resize_nearest(jnp.asarray(x), (6, 5)) for x in d]))
     x = rng.standard_normal((2, 3, 4, 12)).astype(np.float32)
-    close(resize.pixel_shuffle(T(x), 2),
-          np.stack([jresize.pixel_shuffle(jnp.asarray(t), 2) for t in x]))
+    near, shuffled = run_jitted(
+        lambda d, x: (jax.vmap(lambda t: jresize.resize_nearest(t, (6, 5)))(d),
+                      jax.vmap(lambda t: jresize.pixel_shuffle(t, 2))(x)),
+        jnp.asarray(d), jnp.asarray(x))
+    close(resize.resize_nearest(T(d), (6, 5)), near)
+    close(resize.pixel_shuffle(T(x), 2), shuffled)
 
 
 def test_render_weights_and_composite(rng):
@@ -137,10 +147,15 @@ def test_render_weights_and_composite(rng):
     feat = rng.standard_normal((4, 5, 6, 7)).astype(np.float32)
     z = np.sort(rng.uniform(2, 6, (4, 5, 6)).astype(np.float32), axis=-1)
     w = render.weights_from_sigma(T(sigma), T(valid))
-    wj = jrender.weights_from_sigma(jnp.asarray(sigma), jnp.asarray(valid))
+
+    def weights_and_composite(sigma, valid, feat, z):
+        wj = jrender.weights_from_sigma(sigma, valid)
+        return wj, jrender.composite(wj, feat, z)
+
+    wj, outs = run_jitted(weights_and_composite, jnp.asarray(sigma), jnp.asarray(valid),
+                          jnp.asarray(feat), jnp.asarray(z))
     close(w, wj)
-    for g, j in zip(render.composite(w, T(feat), T(z)),
-                    jrender.composite(wj, jnp.asarray(feat), jnp.asarray(z))):
+    for g, j in zip(render.composite(w, T(feat), T(z)), outs):
         close(g, j)
 
 
@@ -153,10 +168,12 @@ def test_grid_sample_2d_3d(rng, padding_mode):
     vol = rng.standard_normal((5, 6, 7, 3)).astype(np.float32)
     g2 = rng.uniform(-1.3, 1.3, (20, 3, 2)).astype(np.float32)  # includes out-of-range
     g3 = rng.uniform(-1.3, 1.3, (30, 3)).astype(np.float32)
-    close(grid_sample.grid_sample_2d(T(img)[None], T(g2)[None], padding_mode)[0],
-          jgs.grid_sample_2d(jnp.asarray(img), jnp.asarray(g2), padding_mode))
-    close(grid_sample.grid_sample_3d(T(vol)[None], T(g3)[None], padding_mode)[0],
-          jgs.grid_sample_3d(jnp.asarray(vol), jnp.asarray(g3), padding_mode))
+    want2, want3 = run_jitted(
+        lambda i, g2, v, g3: (jgs.grid_sample_2d(i, g2, padding_mode),
+                              jgs.grid_sample_3d(v, g3, padding_mode)),
+        jnp.asarray(img), jnp.asarray(g2), jnp.asarray(vol), jnp.asarray(g3))
+    close(grid_sample.grid_sample_2d(T(img)[None], T(g2)[None], padding_mode)[0], want2)
+    close(grid_sample.grid_sample_3d(T(vol)[None], T(g3)[None], padding_mode)[0], want3)
 
 
 def _graph_ops(t: torch.Tensor) -> set:
@@ -229,13 +246,15 @@ def test_cost_volume_and_depth_regression(rng, inv):
     close(dv[0], dvj, atol=0, rtol=0)  # the same float32 arithmetic
     vol = cost_volume.build_cost_volume(
         T(feats).permute(0, 1, 4, 2, 3), T(se), T(si), T(te), T(ti), dv, inv)
-    volj = jcv.build_cost_volume(jnp.asarray(feats[0]), jnp.asarray(se[0]), jnp.asarray(si[0]),
-                                 jnp.asarray(te[0]), jnp.asarray(ti[0]), dvj, inv)
+    volj = run_jitted(lambda *a: jcv.build_cost_volume(*a, inv), jnp.asarray(feats[0]),
+                      jnp.asarray(se[0]), jnp.asarray(si[0]), jnp.asarray(te[0]),
+                      jnp.asarray(ti[0]), dvj)
     close(vol[0].permute(1, 2, 3, 0), volj)
     logits = rng.standard_normal((1, D, Ht, Wt)).astype(np.float32)
     prob = torch.softmax(T(logits), dim=1)
     depth, ci = cost_volume.depth_regression(dv, prob, 1.0, inv)
-    dj, cij = jcv.depth_regression(dvj, jnp.asarray(prob[0].numpy()), 1.0, inv)
+    dj, cij = run_jitted(lambda d, p: jcv.depth_regression(d, p, 1.0, inv), dvj,
+                         jnp.asarray(prob[0].numpy()))
     close(depth[0], dj)
     close(ci[0], cij)
 
@@ -246,7 +265,7 @@ def test_cost_volume_and_depth_regression(rng, inv):
 def test_mip_pyramid_and_fetch_at_borders(rng):
     tex = rng.standard_normal((16, 24, 5)).astype(np.float32)
     levels = mip.build_pyramid(T(tex).permute(2, 0, 1)[None], 3)
-    jlevels = jmip.build_pyramid(jnp.asarray(tex), 3)
+    jlevels = run_jitted(lambda t: jmip.build_pyramid(t, 3), jnp.asarray(tex))
     for l, jl in zip(levels, jlevels):
         close(l[0].permute(1, 2, 0), jl)
     # uv reaches past [0, 1] so both the clamp and the level blend are hit.
@@ -254,10 +273,14 @@ def test_mip_pyramid_and_fetch_at_borders(rng):
     uv[:4] = [[0, 0], [1, 1], [-0.5, 1.5], [1.5, -0.5]]
     lod = rng.uniform(-0.5, 3.5, (64,)).astype(np.float32)
     got = mip.mip_texture_fetch(levels, T(uv)[None], T(lod)[None], 3)[0]
-    close(got, jmip.mip_texture_fetch(jlevels, jnp.asarray(uv), jnp.asarray(lod), 3))
-    packed, offs = jmip.pack_pyramid(jlevels)
-    close(got, jmip.mip_texture_fetch_packed(packed, offs, (16, 24), jnp.asarray(uv),
-                                             jnp.asarray(lod), 3))
+    close(got, run_jitted(lambda l, u, d: jmip.mip_texture_fetch(l, u, d, 3), jlevels,
+                          jnp.asarray(uv), jnp.asarray(lod)))
+
+    def fetch_packed(levels, uv, lod):
+        packed, offs = jmip.pack_pyramid(levels)
+        return jmip.mip_texture_fetch_packed(packed, offs, (16, 24), uv, lod, 3)
+
+    close(got, run_jitted(fetch_packed, jlevels, jnp.asarray(uv), jnp.asarray(lod)))
 
 
 # --- bundles: sampling and encoding ---------------------------------------
@@ -277,8 +300,9 @@ def _rays(sc, b=2):
     te, ti, nf = sc["tar_views"]["extrinsics"], sc["tar_views"]["intrinsics"], sc["near_far"]
     H0, W0 = sc["src_views"]["rgb"].shape[2:4]
     rb = bundles.make_ray_bundles(T(te), T(ti), (H0, W0), T(nf[:, 0]), T(nf[:, 1]), b)
-    rbj = jbundles.make_ray_bundles(jnp.asarray(te[0]), jnp.asarray(ti[0]), (H0, W0),
-                                    jnp.asarray(nf[0, 0]), jnp.asarray(nf[0, 1]), b)
+    rbj = run_jitted(lambda te, ti, n, f: jbundles.make_ray_bundles(te, ti, (H0, W0), n, f, b),
+                     jnp.asarray(te[0]), jnp.asarray(ti[0]), jnp.asarray(nf[0, 0]),
+                     jnp.asarray(nf[0, 1]))
     return rb, rbj
 
 
@@ -295,7 +319,8 @@ def test_sample_bundles(rng, inv, adaptive):
     sc, dr, vr = _bundle_inputs(rng)
     rb, rbj = _rays(sc)
     s = bundles.sample_bundles(rb, T(dr), T(vr), 4, 16, inv, adaptive)
-    sj = jbundles.sample_bundles(rbj, jnp.asarray(dr[0]), jnp.asarray(vr[0]), 4, 16, inv, adaptive)
+    sj = run_jitted(lambda r, d, v: jbundles.sample_bundles(r, d, v, 4, 16, inv, adaptive),
+                    rbj, jnp.asarray(dr[0]), jnp.asarray(vr[0]))
     np.testing.assert_array_equal(s.samples_per_bundle[0].numpy(), np.asarray(sj.samples_per_bundle))
     np.testing.assert_array_equal(s.valid[0].numpy(), np.asarray(sj.valid))
     for name in ("z_vals", "z_metric", "uvd", "ball_radii"):
@@ -306,7 +331,8 @@ def test_encode_samples(rng):
     sc, dr, vr = _bundle_inputs(rng)
     rb, rbj = _rays(sc)
     s = bundles.sample_bundles(rb, T(dr), T(vr), 3, 16, False, True)
-    sj = jbundles.sample_bundles(rbj, jnp.asarray(dr[0]), jnp.asarray(vr[0]), 3, 16, False, True)
+    sj = run_jitted(lambda r, d, v: jbundles.sample_bundles(r, d, v, 3, 16, False, True),
+                    rbj, jnp.asarray(dr[0]), jnp.asarray(vr[0]))
     src = sc["src_views"]["rgb"]
     H, W, F, C, D = 16, 24, 7, 4, 8
     img_feat = rng.standard_normal((1, 3, H, W, F)).astype(np.float32)

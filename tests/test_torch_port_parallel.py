@@ -128,26 +128,31 @@ def _items(tree, sl):
 # --- the ranks ---------------------------------------------------------------
 
 
-def _train_step(case, group, shard, sd="sd"):
+def _train_step(case, group, shard, sd="sd", dtype=torch.float32):
     """One step of the port's network from the weights ``case[sd]`` on
     ``case.batch[shard]``, data-parallel over ``group`` (None: one
-    process): stats, gradients (averaged and clipped), the state after the
-    step and each BatchNorm's element count."""
+    process), in ``dtype`` (bf16: on float32 master weights,
+    ``train.mixed``): stats, gradients (averaged and clipped), the state
+    after the step and each BatchNorm's element count."""
     from gdb_nerf_tpu_torch.models.layers import set_batchnorm_group
     from gdb_nerf_tpu_torch.models.network import Network
     from gdb_nerf_tpu_torch.train import optim
+    from gdb_nerf_tpu_torch.train.mixed import MixedPrecision
     from gdb_nerf_tpu_torch.train.step import make_train_step, to_device_train
 
     net = Network(**case["net"]).train()
     net.load_state_dict(case[sd], strict=True)
-    set_batchnorm_group(net, group)
+    mixed = None if dtype == torch.float32 else MixedPrecision(net, dtype)
+    run = net if mixed is None else mixed.compute
+    set_batchnorm_group(run, group)
     opt, sched = optim.make_optimizer(case["optim_cfg"], net.parameters())
     counts = {}
-    for name, m in net.named_modules():
+    for name, m in run.named_modules():
         if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
             m.register_forward_pre_hook(
                 lambda m, i, name=name: counts.__setitem__(name, i[0].numel() // i[0].shape[1]))
-    step = make_train_step(net, opt, sched, LOSS_WEIGHT, use_perceptual=False, group=group)
+    step = make_train_step(net, opt, sched, LOSS_WEIGHT, use_perceptual=False, group=group,
+                           mixed=mixed)
     stats = step(to_device_train(_items(case["batch"], shard), "cpu"))
     return {"stats": {k: float(v) for k, v in stats.items()},
             "grads": {k: p.grad.clone() for k, p in net.named_parameters()},
@@ -248,6 +253,7 @@ def rank_main(out: str) -> None:
     res = {"device": str(device), "world": hosts.world_size(), "backend": dist.get_backend()}
     for sd, tag in (("sd", ""), ("sd_np", "_np")):
         res["step" + tag] = _train_step(case, group, slice(rank, rank + 1), sd)
+    res["step_bf16"] = _train_step(case, group, slice(rank, rank + 1), "sd", torch.bfloat16)
     # The one-process step on the whole batch: rank 0 on its threads, rank 1
     # on one thread (the same sums in another order).
     threads = torch.get_num_threads()
@@ -285,8 +291,8 @@ def case(tmp_path_factory):
     from gdb_nerf_tpu.models.network import Network as JaxNetwork
     from gdb_nerf_tpu.train.step import to_device_train as jax_to_device_train
     from gdb_nerf_tpu_torch.utils.convert import state_dict_from_jax
-    from tests.test_torch_port_network import jax_variables, small_batch
-    from tests.test_torch_port_train import PRETRAIN_NET, jax_init, optim_cfg, train_batch
+    from tests.test_torch_port_network import jax_init, jax_variables, small_batch
+    from tests.test_torch_port_train import PRETRAIN_NET, optim_cfg, train_batch
 
     rng = np.random.default_rng(0)
     out = tmp_path_factory.mktemp("ranks")
@@ -504,6 +510,24 @@ def test_two_rank_step_matches_one_process(case, ranks):
             torch.testing.assert_close(two["state"][k], v, rtol=0, atol=BN_TOL, msg=k)
         else:
             assert torch.equal(two["state"][k], v), k
+
+
+def test_two_rank_bf16_step_takes_one_float32_update(ranks):
+    """bf16 on float32 master weights over the 2 ranks: the stats averaged
+    over the ranks and the master's float32 gradients all-reduced, so both
+    ranks hold the same gradients, parameters and BatchNorm statistics
+    after the step, bit for bit, all float32; the loss within 5e-3 of the
+    float32 2-rank step's (the bf16 bound of
+    ``tests/test_torch_port_train.py``)."""
+    a, b = (r["step_bf16"] for r in ranks)
+    assert a["stats"] == b["stats"] and a["counts"] == b["counts"] and a["counts"]
+    for k in a["grads"]:
+        assert a["grads"][k].dtype == torch.float32 and torch.equal(a["grads"][k], b["grads"][k]), k
+    for k in a["state"]:
+        assert torch.equal(a["state"][k], b["state"][k]), k
+        assert not a["state"][k].is_floating_point() or a["state"][k].dtype == torch.float32, k
+    loss32 = ranks[0]["step"]["stats"]["loss"]
+    assert abs(a["stats"]["loss"] - loss32) <= 5e-3 * abs(loss32) + 1e-3
 
 
 def test_summation_order_alone_stays_inside_the_gradient_bounds(ranks):
