@@ -120,7 +120,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      a pool of 12 images, a PFM, the decode rate beside cv2's on the same
      files where cv2 imports; a missing prerequisite of the build is printed
      on its own line;
-  11. one JSON line of the training numbers, one of phase 7's, one of phase
+  11. the tools that profile and verify the model, in-process at dtu_eval
+     512x640 V = 3 from seeded weights: (a) tools/profile_forward.py in
+     float32 (TF32 off) and bf16, each stage's CUDA-event time, host enqueue
+     time and time with the stream held, the stages' sum beside the whole
+     forward, the bundle-head kernel's launches set to 0 before and read
+     after (> 0 in each dtype), and the stage chain held to the Renderer's
+     forward; (b) tools/profile_encode.py in bf16, its pieces held to
+     encode_samples' fields; (c) tools/microbench.py in full; (d)
+     tools/roofline.py on (c)'s envelope, its floors beside (a)'s times;
+     (e) tools/verify_scene.py on the card with its five checks; (f)
+     tools/microbench_loader.py; the phase's seconds and one JSON line of
+     the stage table;
+  12. one JSON line of the training numbers, one of phase 7's, one of phase
      8's, one of phases 9's and 10's, one of kernel results (the bundle
      head's with its launches in 6c, 6d, 7c, 8b, 8c and 9d), then the JSON
      result line, or, when the gate of 8b failed, the failure.
@@ -1869,6 +1881,131 @@ def phase_native() -> dict:
             "images_per_s_single": rate_single, "cv2_images_per_s_single": rate_cv2}
 
 
+# Phase 11: the tools that profile and verify the model, driven in-process
+# at dtu_eval 512x640 V = 3 from seeded weights.  The stage chain that
+# profile_forward times is held to the Renderer's forward on the same batch
+# (TOOLS_CHAIN_ATOL: the CPU tests hold it bit for bit), profile_encode's
+# pieces to encode_samples' fields the same way.
+TOOLS_HW = EVAL_CONFIGS["dtu_eval"][1]
+TOOLS_ITERS = 5
+TOOLS_CHAIN_ATOL = 0.0
+TOOLS_LOADER_N = 4
+
+
+def tools_renderer(dtype: str, device):
+    """dtu_eval's network from seed 0 in ``dtype`` on ``device``, and the
+    synthetic loader's first request at its protocol size there."""
+    from gdb_nerf_tpu_torch.runtime.renderer import to_device
+    from gdb_nerf_tpu_torch.tools import measure_common
+
+    cfg = eval_cfg("dtu_eval")
+    cfg.compute_dtype = dtype
+    renderer = measure_common.renderer_for(cfg, device, None)
+    return renderer, to_device(measure_common.first_batches(cfg, 1)[0], device)
+
+
+def max_abs_diff(got, want) -> float:
+    import torch
+
+    diffs = [float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)]
+    if not all(bool(torch.isfinite(g.float()).all()) for g in got):
+        return float("inf")
+    return max(diffs)
+
+
+def phase_tools(device: str = "cuda") -> dict:
+    """11. (a) tools/profile_forward.py in float32 (TF32 off) and bf16, the
+    bundle-head kernel's launches set to 0 before and read after (> 0 in
+    each dtype), and its stage chain against the Renderer's forward; (b)
+    tools/profile_encode.py in bf16, its pieces against encode_samples' fields;
+    (c) tools/microbench.py in full; (d) tools/roofline.py on (c)'s envelope,
+    its floors per stage beside (a)'s times; (e) tools/verify_scene.py on
+    the card with its five checks; (f) tools/microbench_loader.py with
+    --n TOOLS_LOADER_N.  Prints the stage table as one JSON line."""
+    import torch
+
+    from gdb_nerf_tpu_torch.tools import (microbench, microbench_loader, profile_encode,
+                                          profile_forward, roofline, verify_scene)
+
+    t0 = time.time()
+    smi = card()
+    out = {"card": smi, "profile_forward": {}}
+    for dt in ("float32", "bfloat16"):
+        free_cuda()
+        renderer, batch = tools_renderer(dt, device)
+        kernel = renderer.network.nerf.kernel
+        kernel.launches = 0
+        print(f"[tools] profile_forward dtu_eval {TOOLS_HW[0]}x{TOOLS_HW[1]} V=3 {dt} on {smi}")
+        prof = profile_forward.profile(renderer, batch, TOOLS_ITERS)
+        launches = kernel.launches
+        with torch.inference_mode():
+            chained = profile_forward.run_stages(renderer.network, batch, lambda name, fn: fn())
+        ret, _ = renderer.render(batch)
+        keys = sorted(ret)
+        diff = max_abs_diff([chained[k] for k in keys], [ret[k] for k in keys])
+        print(f"[tools] {dt}: bundle-head kernel launches in the profile {launches} (its stages "
+              f"{prof['head_launches']}); the stage chain against the forward: max |d| {diff:.3e}")
+        if launches <= 0 or prof["head_launches"] <= 0:
+            raise AssertionError(f"11a {dt}: the head stage did not launch the bundle-head kernel")
+        if sorted(chained) != keys or not diff <= TOOLS_CHAIN_ATOL:
+            raise AssertionError(f"11a {dt}: the stage chain differs from the forward: {diff}")
+        out["profile_forward"][dt] = {**prof, "launches": launches, "chain_max_abs_diff": diff}
+        del renderer
+    free_cuda()
+    renderer, batch = tools_renderer("bfloat16", device)
+    inp = profile_encode.encode_inputs(renderer.network, batch)
+    calls, _ = profile_encode.pieces(inp)
+    with torch.inference_mode():
+        enc = calls["encode full"]()
+        got = [calls["member rgb (xV)"](), calls["mip fetch (xV)"](), calls["vox fetch"](),
+               calls["ray diff"]()]
+    diff = max_abs_diff(got, [enc.rgbs, enc.mip_feat, enc.vox_feat, enc.ray_diff])
+    print(f"[tools] profile_encode {TOOLS_HW[0]}x{TOOLS_HW[1]} bf16 on {smi}; its pieces against "
+          f"encode_samples: max |d| {diff:.3e}")
+    if not diff <= TOOLS_CHAIN_ATOL:
+        raise AssertionError(f"11b: encode's pieces differ from encode_samples: {diff}")
+    out["profile_encode"] = profile_encode.profile(inp, torch.device(device), TOOLS_ITERS)
+    del renderer, inp, calls, enc, got
+    free_cuda()
+    print(f"[tools] microbench on {smi}")
+    env = microbench.measure(torch.device(device))
+    out["microbench"] = env
+    free_cuda()
+    print(f"[tools] roofline at {TOOLS_HW[0]}x{TOOLS_HW[1]} V=3 S=3 on this run's envelope: "
+          f"RR {env['rr'] / 1e6:.1f} M rows/s, GBW {env['gbw'] / 1e9:.1f} GB/s")
+    roof = roofline.table(*TOOLS_HW, 3, 3, roofline.H100_BYTES_PER_S, env["rr"], env["gbw"])
+    out["roofline"] = roof
+    floors = roof["floor_ms_by_profile_stage"]
+    f32 = {r["stage"]: r for r in out["profile_forward"]["float32"]["stages"]}
+    b16 = {r["stage"]: r for r in out["profile_forward"]["bfloat16"]["stages"]}
+    table = []
+    print(f"[tools] {'stage':<24} {'f32 ms':>8} {'f32 busy':>9} {'bf16 ms':>8} {'bf16 enq':>9} "
+          f"{'bf16 busy':>9} {'floor':>7}")
+    for name in f32:
+        row = {"stage": name, "floor_ms": floors.get(name)}
+        for dt, by_name in (("float32", f32), ("bfloat16", b16)):
+            row.update({f"{dt}_{k}": by_name[name][k] for k in ("ms", "enqueue_ms", "busy_ms")})
+        table.append(row)
+        floor = "-" if row["floor_ms"] is None else f"{row['floor_ms']:.3f}"
+        print(f"[tools] {name:<24} {row['float32_ms']:8.3f} {row['float32_busy_ms']:9.3f} "
+              f"{row['bfloat16_ms']:8.3f} {row['bfloat16_enqueue_ms']:9.3f} "
+              f"{row['bfloat16_busy_ms']:9.3f} {floor:>7}")
+    for dt in ("float32", "bfloat16"):
+        p = out["profile_forward"][dt]
+        print(f"[tools] {dt}: stages' sum {p['sum_ms']:.3f} ms (busy {p['sum_busy_ms']:.3f}, "
+              f"enqueue {p['sum_enqueue_ms']:.3f}) against the whole forward {p['forward_ms']:.3f} "
+              f"ms (enqueue {p['forward_enqueue_ms']:.3f})")
+    r = verify_scene.run(device)
+    verify_scene.check(r)
+    print(f"[tools] verify_scene on the card: {json.dumps(r)}: SCENE RECONSTRUCTION OK")
+    out["verify_scene"] = r
+    out["microbench_loader"] = microbench_loader.measure(TOOLS_LOADER_N)
+    out["seconds"] = time.time() - t0
+    print(f"[tools] phase 11 took {out['seconds']:.1f} s")
+    print(json.dumps({"tools": {"stage_table": table, **out}}))
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -1918,6 +2055,8 @@ def main() -> None:
     t0 = time.time()
     native = phase_native()
     print(f"[native] phase 10 took {time.time() - t0:.1f} s")
+    free_cuda()
+    phase_tools()
     kernels = [{
         "name": "bundle_head", "route": "cuda",
         "source": "gdb_nerf_tpu_torch/csrc/bundle_head.cu",

@@ -119,40 +119,63 @@ class DepthNet(nn.Module):
                "blend_rgbs": []}
         depth_range = near_far[:, :, None, None]
         for idx in range(len(self.vol_levels)):
-            feats = ms_feats[self.vol_levels[idx]]
-            src_ints_stage = camera.scale_intrinsics(src_ints, self.feat_scales[idx])
-            tar_ints_stage = camera.scale_intrinsics(tar_ints, self.vol_scales[idx])
-            Hi = int(H_orig * self.vol_scales[idx])
-            Wi = int(W_orig * self.vol_scales[idx])
-            inv = bool(self.inv_depth[idx])
-            dr = depth_range.expand(-1, 2, Hi, Wi)
-            depth_values = cost_volume.get_depth_values(dr, self.num_depth[idx], inv)
-            volume = cost_volume.build_cost_volume(
-                feats, src_exts, src_ints_stage, tar_exts, tar_ints_stage, depth_values, inv
-            )
-            feat_volume, depth_prob = self.cost_regs[idx](volume)
-            depth, ci = cost_volume.depth_regression(
-                depth_values, depth_prob, self.ci_scales[idx], inv
-            )
-            first, last = depth_values[:, 0], depth_values[:, -1]
-            vol_range = torch.stack([1.0 / first, 1.0 / last] if inv else [first, last], dim=1)
+            depth_values, volume = self.stage_volume(
+                idx, ms_feats, src_exts, src_ints, tar_exts, tar_ints, depth_range,
+                (H_orig, W_orig))
+            feat_volume, depth, ci, vol_range = self.stage_regularize(idx, volume, depth_values)
             out["depths"].append(depth)
             out["depth_ranges"].append(ci)
             out["vol_ranges"].append(vol_range)
             out["volumes"].append(feat_volume)
-            depth_range = ci
             if idx < len(self.vol_levels) - 1:
                 if train:
+                    feats = ms_feats[self.vol_levels[idx]]
                     hf, wf = feats.shape[-2:]
                     small = resize_bilinear_nchw(src_images.reshape(B * V, 3, H_orig, W_orig),
                                                  (hf, wf)).reshape(B, V, 3, hf, wf)
                     out["blend_rgbs"].append(self._render_stage(
                         idx, feat_volume, torch.cat([feats.float(), small], dim=2),
-                        src_exts, src_ints_stage, tar_exts, tar_ints_stage, ci, vol_range,
+                        src_exts, camera.scale_intrinsics(src_ints, self.feat_scales[idx]),
+                        tar_exts, camera.scale_intrinsics(tar_ints, self.vol_scales[idx]), ci,
+                        vol_range,
                     ))
-                up = self.vol_scales[idx + 1] / self.vol_scales[idx]
-                depth_range = resize_bilinear_nchw(ci, (int(Hi * up), int(Wi * up)))
+                depth_range = self.next_depth_range(idx, ci)
         return out
+
+    def stage_volume(self, idx, ms_feats, src_exts, src_ints, tar_exts, tar_ints, depth_range,
+                     hw):
+        """Stage ``idx``'s hypotheses (B, D, Hi, Wi) and its variance cost
+        volume (B, C, D, Hi, Wi) inside ``depth_range`` (B, 2, Hi, Wi), or
+        (B, 2, 1, 1) for the first stage; ``hw`` is the source image size."""
+        Hi, Wi = int(hw[0] * self.vol_scales[idx]), int(hw[1] * self.vol_scales[idx])
+        inv = bool(self.inv_depth[idx])
+        dr = depth_range.expand(-1, 2, Hi, Wi)
+        depth_values = cost_volume.get_depth_values(dr, self.num_depth[idx], inv)
+        volume = cost_volume.build_cost_volume(
+            ms_feats[self.vol_levels[idx]], src_exts,
+            camera.scale_intrinsics(src_ints, self.feat_scales[idx]), tar_exts,
+            camera.scale_intrinsics(tar_ints, self.vol_scales[idx]), depth_values, inv,
+        )
+        return depth_values, volume
+
+    def stage_regularize(self, idx, volume, depth_values):
+        """Stage ``idx``'s U-Net over ``volume`` and the depth it regresses:
+        feat_volume (B, voxel, D, Hi, Wi), depth (B, Hi, Wi), ci and vol_range
+        (B, 2, Hi, Wi) metric."""
+        inv = bool(self.inv_depth[idx])
+        feat_volume, depth_prob = self.cost_regs[idx](volume)
+        depth, ci = cost_volume.depth_regression(
+            depth_values, depth_prob, self.ci_scales[idx], inv
+        )
+        first, last = depth_values[:, 0], depth_values[:, -1]
+        vol_range = torch.stack([1.0 / first, 1.0 / last] if inv else [first, last], dim=1)
+        return feat_volume, depth, ci, vol_range
+
+    def next_depth_range(self, idx, ci):
+        """Stage ``idx``'s interval ``ci`` resized to the next stage's grid."""
+        Hi, Wi = ci.shape[-2:]
+        up = self.vol_scales[idx + 1] / self.vol_scales[idx]
+        return resize_bilinear_nchw(ci, (int(Hi * up), int(Wi * up)))
 
     def _render_stage(self, idx, feat_volume, img_feat_rgb, src_exts, src_ints_stage, tar_exts,
                       tar_ints_stage, ci, vol_range):

@@ -26,6 +26,14 @@ has no backward); without it, the head runs the kernel on CUDA tensors.
 BatchNorm follows the module's mode: batch statistics in ``.train()``,
 over the ranks of a process group after ``set_batchnorm_group``.
 
+The forward runs in stages, each a method that ``forward`` calls in this
+order, so a profile (``tools/profile_forward.py``) times exactly what the
+forward runs: ``features`` (1, FPN), ``depth_net`` (2, MVS:
+``DepthNet.stage_volume`` and ``stage_regularize`` per cascade stage),
+``bundle_windows`` (3), ``texture_pyramid`` (4), then per row slab
+(``slabs``) ``sample`` and ``encode`` (5) and ``head_composite`` (6), and
+``decode`` (7).
+
 ``spatial_group`` (the JAX Network's ``spatial_axis``): when set, each rank
 of that process group samples, encodes, runs the head on and composites
 only its own contiguous range of bundle rows, and the bundle maps are
@@ -43,7 +51,7 @@ sample layout could save (``tools/measure_fill.py``).
 
 from __future__ import annotations
 
-from typing import Any, Sequence
+from typing import Any, NamedTuple, Sequence
 
 import torch
 import torch.distributed as dist
@@ -57,6 +65,38 @@ from gdb_nerf_tpu_torch.models.nerf_head import BundleNeRF
 from gdb_nerf_tpu_torch.ops import bundles, mip, render
 from gdb_nerf_tpu_torch.ops.resize import resize_bilinear_nchw, resize_nearest
 from gdb_nerf_tpu_torch.parallel.collectives import gather_rows
+
+
+class Frame(NamedTuple):
+    """A request's tensors as the stages read them."""
+
+    src_images: torch.Tensor  # (B, V, H, W, 3) channels-last source images
+    src_nchw: torch.Tensor  # (B*V, 3, H, W) the same, NCHW
+    src_exts: torch.Tensor  # (B, V, 4, 4)
+    src_ints: torch.Tensor  # (B, V, 3, 3)
+    tar_exts: torch.Tensor  # (B, 4, 4)
+    tar_ints: torch.Tensor  # (B, 3, 3)
+    near_far: torch.Tensor  # (B, 2)
+
+
+class Windows(NamedTuple):
+    """Stage 3's output: the bundles and the last MVS stage at bundle
+    resolution (H/b, W/b)."""
+
+    rb: bundles.RayBundle
+    depth_range: torch.Tensor  # (B, 2, H/b, W/b) metric
+    vol_range: torch.Tensor  # (B, 2, H/b, W/b) metric
+    feat_volume: torch.Tensor  # (B, voxel, D, Hv, Wv)
+    mvs_depth: torch.Tensor  # (B, H/b, W/b)
+
+
+class Slab(NamedTuple):
+    """One slab of bundle rows that stages 5-6 render at once."""
+
+    rb: bundles.RayBundle
+    depth_range: torch.Tensor
+    vol_range: torch.Tensor
+    feat_volume: torch.Tensor
 
 
 class Network(nn.Module):
@@ -200,115 +240,110 @@ class Network(nn.Module):
           blend_rgbs: the per-stage stage-NeRF renders (B, Hi, Wi, 3), train
             only, else [].
         """
-        b = self.bundle_size
-        dt = self.compute_dtype
-        src = batch["src_views"]
-        src_images = src["rgb"]
-        B, V, H_orig, W_orig, _ = src_images.shape
-        src_exts, src_ints = src["extrinsics"], src["intrinsics"]
-        tar_exts = batch["tar_views"]["extrinsics"]
-        tar_ints = batch["tar_views"]["intrinsics"]
-        near_far = batch["near_far"]
-        first, local = self._bundle_rows(H_orig // b, train)
-        src_nchw = src_images.reshape(B * V, H_orig, W_orig, 3).permute(0, 3, 1, 2)
-
+        frame = self.frame(batch)
+        B, V, H_orig, W_orig, _ = frame.src_images.shape
+        first, local = self._bundle_rows(H_orig // self.bundle_size, train)
         # 1. FPN over all source images.
-        ms_feats = [
-            f.reshape(B, V, *f.shape[1:]) for f in self.feature_net(src_nchw.to(dt))
-        ]
-
+        ms_feats = self.features(frame)
         # 2. Cascaded MVS.
         mvs = self.depth_net(
-            src_nchw.reshape(B, V, 3, H_orig, W_orig), ms_feats, src_exts, src_ints, tar_exts,
-            tar_ints, near_far, train,
+            frame.src_nchw.reshape(B, V, 3, H_orig, W_orig), ms_feats, frame.src_exts,
+            frame.src_ints, frame.tar_exts, frame.tar_ints, frame.near_far, train,
         )
+        # 3. Bundle grid and per-bundle depth windows.
+        windows = self.bundle_windows(frame, mvs)
+        # 4. Source feature ++ rgb maps at bundle resolution and their mip
+        # pyramid, shared by every row slab.
+        pyramid = self.texture_pyramid(frame, ms_feats)
+        # 5-6. Sample, encode, NeRF head, composite, per row slab; with a
+        # spatial group, only this rank's rows, gathered after.
+        outs = [self._render_rows(frame, slab, pyramid, train)
+                for slab in self.slabs(windows, first, local)]
+        # 7. Decode.
+        ret = self.decode(frame, windows, outs)
+        return ret, mvs["depths"], mvs["blend_rgbs"]
+
+    def frame(self, batch: dict) -> Frame:
+        """The request's tensors that the stages read (see ``forward``)."""
+        src = batch["src_views"]
+        src_images = src["rgb"]
+        B, V, H, W, _ = src_images.shape
+        src_nchw = src_images.reshape(B * V, H, W, 3).permute(0, 3, 1, 2)
+        return Frame(src_images, src_nchw, src["extrinsics"], src["intrinsics"],
+                     batch["tar_views"]["extrinsics"], batch["tar_views"]["intrinsics"],
+                     batch["near_far"])
+
+    def features(self, frame: Frame) -> list[torch.Tensor]:
+        """Stage 1: the FPN levels [(B, V, c, h, w)], coarsest first, in the
+        compute dtype."""
+        B, V = frame.src_images.shape[:2]
+        return [f.reshape(B, V, *f.shape[1:])
+                for f in self.feature_net(frame.src_nchw.to(self.compute_dtype))]
+
+    def bundle_windows(self, frame: Frame, mvs: dict) -> Windows:
+        """Stage 3: the ray bundles and the last MVS stage's depth windows,
+        volume and depth at bundle resolution."""
+        b = self.bundle_size
+        H_orig, W_orig = frame.src_images.shape[2:4]
         depth_range = mvs["depth_ranges"][-1]
         vol_range = mvs["vol_ranges"][-1]
-        feat_volume = mvs["volumes"][-1]
         mvs_depth = mvs["depths"][-1]
-
-        # 3. Bundle grid and per-bundle depth windows.
         H, W = H_orig // b, W_orig // b
         if tuple(depth_range.shape[2:]) != (H, W):
             depth_range = resize_bilinear_nchw(depth_range, (H, W))
             vol_range = resize_bilinear_nchw(vol_range, (H, W))
             mvs_depth = resize_nearest(mvs_depth, (H, W))
-        rb = bundles.make_ray_bundles(
-            tar_exts, tar_ints, (H_orig, W_orig), near_far[:, 0], near_far[:, 1], b
-        )
-        inv = bool(self.mvs_inv_depth[-1])
+        rb = bundles.make_ray_bundles(frame.tar_exts, frame.tar_ints, (H_orig, W_orig),
+                                      frame.near_far[:, 0], frame.near_far[:, 1], b)
+        return Windows(rb, depth_range, vol_range, mvs["volumes"][-1], mvs_depth)
 
-        # 4. Source feature ++ rgb maps at bundle resolution and their mip
-        # pyramid, shared by every row slab.
-        img_feat = ms_feats[self.feat_level].reshape(B * V, -1, *ms_feats[self.feat_level].shape[-2:])
-        img_feat = resize_bilinear_nchw(img_feat, (H, W))
-        src_small = resize_bilinear_nchw(src_nchw, (H, W))
-        tex = torch.cat([img_feat, src_small.to(img_feat.dtype)], dim=1).to(dt)
-        pyramid = mip.build_pyramid(tex.float(), self.max_mipmap_level)
+    def texture_pyramid(self, frame: Frame, ms_feats: list) -> list[torch.Tensor]:
+        """Stage 4: the mip pyramid of the (B*V, F, H/b, W/b) source feature
+        ++ rgb maps, float32 from compute-dtype values."""
+        b = self.bundle_size
+        H, W = frame.src_images.shape[2] // b, frame.src_images.shape[3] // b
+        feat = ms_feats[self.feat_level]
+        img_feat = resize_bilinear_nchw(feat.reshape(-1, *feat.shape[-3:]), (H, W))
+        src_small = resize_bilinear_nchw(frame.src_nchw, (H, W))
+        tex = torch.cat([img_feat, src_small.to(img_feat.dtype)], dim=1).to(self.compute_dtype)
+        return mip.build_pyramid(tex.float(), self.max_mipmap_level)
 
-        # 5-6. Sample, encode, NeRF head, composite, per row slab; with a
-        # spatial group, only this rank's rows, gathered after.
-        n_chunks = self.num_chunks(local, W)
-        rows = local // n_chunks
-        outs = []
+    def slabs(self, windows: Windows, first: int, rows: int) -> list[Slab]:
+        """The row slabs of bundle rows [first, first + rows) that stages 5-6
+        render one at a time (``num_chunks``)."""
+        rb = windows.rb
+        n_chunks = self.num_chunks(rows, rb.uv.shape[1])
+        step = rows // n_chunks
+        out = []
         for ci in range(n_chunks):
-            sl = slice(first + ci * rows, first + (ci + 1) * rows)
-            rb_c = rb._replace(bundle_d=rb.bundle_d[:, sl], uv=rb.uv[sl], cos=rb.cos[:, sl])
-            outs.append(self._render_rows(
-                rb_c, depth_range[:, :, sl], vol_range[:, :, sl], src_images, pyramid,
-                feat_volume, src_exts, src_ints, inv, train,
-            ))
-        bundle_maps = [torch.cat(t, dim=1) for t in zip(*outs)]
-        if self.spatial_group is not None:
-            bundle_maps = [gather_rows(t, 1, self.spatial_group) for t in bundle_maps]
-        feat_map, depth_map, opacity = bundle_maps[:3]
-        nerf_depth = 1.0 / depth_map if inv else depth_map
+            sl = slice(first + ci * step, first + (ci + 1) * step)
+            out.append(Slab(rb._replace(bundle_d=rb.bundle_d[:, sl], uv=rb.uv[sl],
+                                        cos=rb.cos[:, sl]),
+                            windows.depth_range[:, :, sl], windows.vol_range[:, :, sl],
+                            windows.feat_volume))
+        return out
 
-        # 7. Decode: coarse RDN path + fine member-ray RGB.  The member-RGB
-        # unpack is a pure permutation: member k = i*b + j of bundle (h, w)
-        # is pixel (h*b + i, w*b + j).
-        bsq = b * b
-        rgb_f = feat_map[..., : bsq * 3].reshape(B, H, W, b, b * 3)
-        rgb_f = rgb_f.permute(0, 1, 3, 2, 4).reshape(B, H_orig, W_orig, 3)
-        rgb_c = self.upsampler(feat_map[..., bsq * 3:].permute(0, 3, 1, 2).to(dt))
-        img = rgb_c.permute(0, 2, 3, 1) + rgb_f
-        if self.reweighting:
-            img = 0.5 * (img + rgb_f)
-        maps = resize_bilinear_nchw(torch.stack([nerf_depth, opacity], dim=1), (H_orig, W_orig))
-        ret = {"rgb": img, "nerf_depth": maps[:, 0], "mvs_depth": mvs_depth, "opacity": maps[:, 1]}
-        if self.debug_outputs:
-            ret["spb"] = bundle_maps[3]
-        return ret, mvs["depths"], mvs["blend_rgbs"]
+    def sample(self, slab: Slab) -> bundles.BundleSamples:
+        """Stage 5a: a slab's samples inside its depth windows."""
+        return bundles.sample_bundles(
+            slab.rb, slab.depth_range, slab.vol_range, self.max_num_samples,
+            self.global_num_depth, bool(self.mvs_inv_depth[-1]), self.is_adaptive,
+        )
 
-    def _bundle_rows(self, H: int, train: bool) -> tuple[int, int]:
-        """The first bundle row this rank renders and its row count: all H
-        rows, or with a spatial group its rank's contiguous share."""
-        if self.spatial_group is None:
-            return 0, H
-        if train:
-            raise ValueError("the row-sharded render is an eval path; train with "
-                             "spatial_group None")
-        world = dist.get_world_size(self.spatial_group)
-        if H % world:
-            raise ValueError(f"bundle-grid height {H} (H / bundle_size) is not divisible by "
-                             f"the {world} ranks of the spatial group")
-        return dist.get_rank(self.spatial_group) * (H // world), H // world
+    def encode(self, frame: Frame, slab: Slab, samples, pyramid) -> bundles.EncodedSamples:
+        """Stage 5b: the samples' features from the source views and the
+        volume."""
+        return bundles.encode_samples(
+            slab.rb, samples, frame.src_images, pyramid, slab.feat_volume.to(self.compute_dtype),
+            frame.src_exts, frame.src_ints, self.max_mipmap_level,
+        )
 
-    def _render_rows(self, rb, depth_range, vol_range, src_images, pyramid, feat_volume,
-                     src_exts, src_ints, inv, train):
-        """Sample, encode, run the NeRF head and composite one slab of bundle
-        rows.  Returns feat_map (B, Hc, W, C) float32, depth_map and opacity
-        (B, Hc, W), and with ``debug_outputs`` the sample counts (B, Hc, W)
-        int32."""
+    def head_composite(self, samples, enc, train: bool = False) -> tuple:
+        """Stage 6: the NeRF head on every sample and the composite along
+        each bundle.  Returns feat_map (B, Hc, W, C) float32, depth_map and
+        opacity (B, Hc, W), and with ``debug_outputs`` the sample counts
+        (B, Hc, W) int32."""
         dt = self.compute_dtype
-        samples = bundles.sample_bundles(
-            rb, depth_range, vol_range, self.max_num_samples, self.global_num_depth,
-            inv, self.is_adaptive,
-        )
-        enc = bundles.encode_samples(
-            rb, samples, src_images, pyramid, feat_volume.to(dt), src_exts, src_ints,
-            self.max_mipmap_level,
-        )
         B, V, Hc, W, S = enc.mip_feat.shape[:5]
         mip_feat = enc.mip_feat.to(dt)
         payload = torch.cat([enc.rgbs.reshape(B, V, Hc, W, S, -1).to(dt), mip_feat], dim=-1)
@@ -329,3 +364,51 @@ class Network(nn.Module):
         if self.debug_outputs:
             out = (*out, samples.samples_per_bundle.to(torch.int32))
         return out
+
+    def decode(self, frame: Frame, windows: Windows, outs: list) -> dict:
+        """Stage 7: the slabs' bundle maps joined (and gathered over a spatial
+        group), the RDN's coarse path plus the member rays' RGB, and the
+        depth and opacity maps at full resolution -> ret (see ``forward``)."""
+        b = self.bundle_size
+        B, _, H_orig, W_orig, _ = frame.src_images.shape
+        H, W = H_orig // b, W_orig // b
+        bundle_maps = [torch.cat(t, dim=1) for t in zip(*outs)]
+        if self.spatial_group is not None:
+            bundle_maps = [gather_rows(t, 1, self.spatial_group) for t in bundle_maps]
+        feat_map, depth_map, opacity = bundle_maps[:3]
+        nerf_depth = 1.0 / depth_map if self.mvs_inv_depth[-1] else depth_map
+        # The member-RGB unpack is a pure permutation: member k = i*b + j of
+        # bundle (h, w) is pixel (h*b + i, w*b + j).
+        bsq = b * b
+        rgb_f = feat_map[..., : bsq * 3].reshape(B, H, W, b, b * 3)
+        rgb_f = rgb_f.permute(0, 1, 3, 2, 4).reshape(B, H_orig, W_orig, 3)
+        rgb_c = self.upsampler(feat_map[..., bsq * 3:].permute(0, 3, 1, 2).to(self.compute_dtype))
+        img = rgb_c.permute(0, 2, 3, 1) + rgb_f
+        if self.reweighting:
+            img = 0.5 * (img + rgb_f)
+        maps = resize_bilinear_nchw(torch.stack([nerf_depth, opacity], dim=1), (H_orig, W_orig))
+        ret = {"rgb": img, "nerf_depth": maps[:, 0], "mvs_depth": windows.mvs_depth,
+               "opacity": maps[:, 1]}
+        if self.debug_outputs:
+            ret["spb"] = bundle_maps[3]
+        return ret
+
+    def _bundle_rows(self, H: int, train: bool) -> tuple[int, int]:
+        """The first bundle row this rank renders and its row count: all H
+        rows, or with a spatial group its rank's contiguous share."""
+        if self.spatial_group is None:
+            return 0, H
+        if train:
+            raise ValueError("the row-sharded render is an eval path; train with "
+                             "spatial_group None")
+        world = dist.get_world_size(self.spatial_group)
+        if H % world:
+            raise ValueError(f"bundle-grid height {H} (H / bundle_size) is not divisible by "
+                             f"the {world} ranks of the spatial group")
+        return dist.get_rank(self.spatial_group) * (H // world), H // world
+
+    def _render_rows(self, frame: Frame, slab: Slab, pyramid, train: bool) -> tuple:
+        """Stages 5-6 on one slab of bundle rows (``head_composite``'s
+        outputs)."""
+        samples = self.sample(slab)
+        return self.head_composite(samples, self.encode(frame, slab, samples, pyramid), train)

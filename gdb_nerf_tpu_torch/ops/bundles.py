@@ -158,43 +158,43 @@ def fetch_vox(feat_volume: torch.Tensor, samples: BundleSamples) -> torch.Tensor
     return out.to(feat_volume.dtype)
 
 
-def encode_samples(
+class SampleProjection(NamedTuple):
+    """Where the samples land in the source views (``project_samples``)."""
+
+    grid: torch.Tensor  # (B, V, H, W, S, b*b, 2) member rays, grid_sample coords
+    uv: torch.Tensor  # (B, V, H, W, S, 2) sphere centers, texture coords in [0, 1]
+    lod: torch.Tensor  # (B, V, H, W, S) fractional mip level, before the clamp
+    dist: torch.Tensor  # (B, V, H, W, S) sphere center to source camera
+    bundle_xyz: torch.Tensor  # (B, H, W, S, 3) sphere centers, world
+
+
+def project_samples(
     rb: RayBundle,
     samples: BundleSamples,
-    src_images: torch.Tensor,
-    pyramid: list[torch.Tensor],
-    feat_volume: torch.Tensor,
     src_exts: torch.Tensor,
     src_ints: torch.Tensor,
-    max_mipmap_level: int,
-) -> EncodedSamples:
-    """Sphere-based encoding of bundle samples from all source views.
+    image_hw: tuple[int, int],
+    texture_hw: tuple[int, int],
+) -> SampleProjection:
+    """The projection math of ``encode_samples``: sphere centers, member
+    projections and the LOD of each sample in each source view.
 
-    Args:
-      rb, samples: the bundles and their samples (H bundle rows).
-      src_images: (B, V, H_orig, W_orig, 3) float32 source images.
-      pyramid: ``mip.build_pyramid`` levels of the (B*V, F, Hf, Wf) source
-        feature ++ rgb maps at bundle resolution, float32.
-      feat_volume: (B, C, D, Hv, Wv) regularized cost volume.
-      src_exts (B, V, 4, 4), src_ints (B, V, 3, 3) at full resolution.
-
-    Returns EncodedSamples, float32.
+    ``image_hw`` is the source images' size, ``texture_hw`` the mip
+    pyramid's level 0; src_exts (B, V, 4, 4), src_ints (B, V, 3, 3) at full
+    resolution.
     """
-    B, V, H0, W0, _ = src_images.shape
+    B, V = src_exts.shape[:2]
     _, H, W, S = samples.z_vals.shape
+    H0, W0 = image_hw
+    Hf, Wf = texture_hw
     bsq = rb.member_off.shape[1]
     b_size = int(round(bsq**0.5))
-    Hf, Wf = pyramid[0].shape[-2:]
-
-    vox_feat = fetch_vox(feat_volume, samples)
 
     z = samples.z_metric[:, None]  # (B, 1, H, W, S)
     bundle_d = rb.bundle_d  # (B, H, W, 3)
     bundle_xyz = rb.rays_o[:, None, None, None] + bundle_d[..., None, :] * samples.z_metric[..., None]
-    src_cam_xyz = camera.invert_extrinsics(src_exts)[..., :3, 3]  # (B, V, 3)
     src_ints_scaled = camera.scale_intrinsics(src_ints, 1.0 / b_size)
     src_pix_radius = camera.pixel_radius(src_ints_scaled)  # (B, V)
-    tar_diff = l2norm(bundle_d)[:, None, :, :, None, :]  # (B, 1, H, W, 1, 3)
 
     R = src_exts[..., :3, :3]  # (B, V, 3, 3)
     t = src_exts[..., :3, 3]
@@ -215,10 +215,6 @@ def encode_samples(
     grid = torch.stack(
         [2.0 * (img[..., 0] / zc) / W0 - 1.0, 2.0 * (img[..., 1] / zc) / H0 - 1.0], dim=-1
     )  # (B, V, H, W, S, bsq, 2)
-    src_nchw = src_images.reshape(B * V, H0, W0, 3).permute(0, 3, 1, 2)
-    rgbs = grid_sample_2d_nchw(
-        src_nchw.float(), grid.reshape(B * V, H, W, S, bsq, 2), padding_mode="border"
-    ).reshape(B, V, H, W, S, bsq, 3)
 
     # Sphere projection radius -> fractional mip level.  ``dist`` is also
     # |bundle_xyz - cam_xyz| (rigid transforms preserve norms).
@@ -233,16 +229,74 @@ def encode_samples(
         torch.sqrt(torch.clamp_min(ratio, 1e-12)) + torch.sqrt(torch.clamp_min(sec_sq - 1.0, 1e-12))
     )
     lod = torch.log2(proj_radii / src_pix_radius[..., None, None, None])
-    mip_feat = mip_texture_fetch(
-        pyramid, uv.reshape(B * V, -1, 2), lod.reshape(B * V, -1), max_mipmap_level
+    return SampleProjection(grid, uv, lod, dist, bundle_xyz)
+
+
+def fetch_member_rgb(src_images: torch.Tensor, proj: SampleProjection) -> torch.Tensor:
+    """Bilinear, border-padded source RGB of every member ray,
+    (B, V, H, W, S, b*b, 3) float32, from (B, V, H0, W0, 3) images."""
+    B, V, H0, W0, _ = src_images.shape
+    H, W, S, bsq = proj.grid.shape[2:6]
+    src_nchw = src_images.reshape(B * V, H0, W0, 3).permute(0, 3, 1, 2)
+    return grid_sample_2d_nchw(
+        src_nchw.float(), proj.grid.reshape(B * V, H, W, S, bsq, 2), padding_mode="border"
+    ).reshape(B, V, H, W, S, bsq, 3)
+
+
+def fetch_mip(pyramid: list[torch.Tensor], proj: SampleProjection,
+              max_mipmap_level: int) -> torch.Tensor:
+    """The mip-filtered source feature ++ rgb at each sample's footprint
+    level, (B, V, H, W, S, F), from ``mip.build_pyramid`` levels."""
+    B, V, H, W, S = proj.lod.shape
+    return mip_texture_fetch(
+        pyramid, proj.uv.reshape(B * V, -1, 2), proj.lod.reshape(B * V, -1), max_mipmap_level
     ).reshape(B, V, H, W, S, -1)
 
-    # Ray-difference features.  The direction keeps its own norm: near-
-    # parallel rays cancel catastrophically through sqrt(2 - 2 dot).
-    src_diff = (bundle_xyz[:, None] - src_cam_xyz[:, :, None, None, None]) / torch.clamp_min(
-        dist, 1e-12
+
+def ray_difference(rb: RayBundle, src_exts: torch.Tensor, proj: SampleProjection) -> torch.Tensor:
+    """IBRNet-style ray-difference features (B, V, H, W, S, 4): the unit
+    difference of the target and source directions, and their dot.  The
+    direction keeps its own norm: near-parallel rays cancel catastrophically
+    through sqrt(2 - 2 dot)."""
+    src_cam_xyz = camera.invert_extrinsics(src_exts)[..., :3, 3]  # (B, V, 3)
+    tar_diff = l2norm(rb.bundle_d)[:, None, :, :, None, :]  # (B, 1, H, W, 1, 3)
+    src_diff = (proj.bundle_xyz[:, None] - src_cam_xyz[:, :, None, None, None]) / torch.clamp_min(
+        proj.dist, 1e-12
     )[..., None]
     direction = l2norm(tar_diff - src_diff)
     dot = (tar_diff * src_diff).sum(-1, keepdim=True)
-    ray_diff = torch.cat([direction, dot], dim=-1)
+    return torch.cat([direction, dot], dim=-1)
+
+
+def encode_samples(
+    rb: RayBundle,
+    samples: BundleSamples,
+    src_images: torch.Tensor,
+    pyramid: list[torch.Tensor],
+    feat_volume: torch.Tensor,
+    src_exts: torch.Tensor,
+    src_ints: torch.Tensor,
+    max_mipmap_level: int,
+) -> EncodedSamples:
+    """Sphere-based encoding of bundle samples from all source views.
+
+    Runs its pieces in order: ``fetch_vox``, ``project_samples``,
+    ``fetch_member_rgb``, ``fetch_mip`` and ``ray_difference``.
+
+    Args:
+      rb, samples: the bundles and their samples (H bundle rows).
+      src_images: (B, V, H_orig, W_orig, 3) float32 source images.
+      pyramid: ``mip.build_pyramid`` levels of the (B*V, F, Hf, Wf) source
+        feature ++ rgb maps at bundle resolution, float32.
+      feat_volume: (B, C, D, Hv, Wv) regularized cost volume.
+      src_exts (B, V, 4, 4), src_ints (B, V, 3, 3) at full resolution.
+
+    Returns EncodedSamples, float32.
+    """
+    vox_feat = fetch_vox(feat_volume, samples)
+    proj = project_samples(rb, samples, src_exts, src_ints, src_images.shape[2:4],
+                           pyramid[0].shape[-2:])
+    rgbs = fetch_member_rgb(src_images, proj)
+    mip_feat = fetch_mip(pyramid, proj, max_mipmap_level)
+    ray_diff = ray_difference(rb, src_exts, proj)
     return EncodedSamples(rgbs, mip_feat, ray_diff, vox_feat)

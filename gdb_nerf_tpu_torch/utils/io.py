@@ -1,4 +1,5 @@
-"""File readers for the MVS datasets (DTU camera files, PFM depth maps).
+"""File readers for the MVS datasets (DTU camera files, PFM depth maps),
+and the PFM writer.
 
 Formats match the reference's parsers (its utils/data_utils.py:
 read_cam_file at 55-67, read_pfm at 83-118): DTU `*_cam.txt` files hold a
@@ -55,3 +56,16 @@ def read_pfm(path: str):
     data = data.reshape(shape)
     return np.flipud(data).copy(), scale
 
+
+def write_pfm(path: str, image: np.ndarray, scale: float = 1.0) -> None:
+    """Write a float32 image as PFM (for depth-map dumps)."""
+    image = np.flipud(image).astype(np.float32)
+    color = image.ndim == 3 and image.shape[2] == 3
+    with open(path, "wb") as f:
+        f.write(b"PF\n" if color else b"Pf\n")
+        f.write(f"{image.shape[1]} {image.shape[0]}\n".encode())
+        endian = image.dtype.byteorder
+        if endian == "<" or (endian == "=" and np.little_endian):
+            scale = -scale
+        f.write(f"{scale}\n".encode())
+        image.tofile(f)

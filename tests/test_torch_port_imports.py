@@ -5,7 +5,9 @@
   ``eval/*`` (``eval/lpips`` too), ``parallel/*``, ``utils/img``,
   ``utils/checkpoint``, ``datasets/native`` and the tools that measure the
   model (``tools/bf16_gate``, ``tools/measure_fill``, ``tools/measure_lod``,
-  ``tools/measure_train_step``) among them, and the port's CLI loader and
+  ``tools/measure_train_step``, ``tools/profile_forward``,
+  ``tools/profile_encode``, ``tools/microbench``, ``tools/roofline``,
+  ``tools/verify_scene``, ``tools/microbench_loader``) among them, and the port's CLI loader and
   one train step run on the CPU, without pulling jax, flax or the JAX
   package (``gdb_nerf_tpu``) into ``sys.modules``; no source of the port
   names either in an import, or a path into the JAX package's ``native``
@@ -110,10 +112,12 @@ def test_port_imports_no_jax(fresh_interpreter):
         "train.trainer", "eval.metrics", "eval.evaluator", "eval.lpips", "utils.img",
         "utils.checkpoint", "parallel", "parallel.hosts", "parallel.collectives", "parallel.infer",
         "tools.bf16_gate", "tools.measure_common", "tools.measure_fill", "tools.measure_lod",
-        "train.mixed", "tools.measure_train_step", "datasets.native")}
+        "train.mixed", "tools.measure_train_step", "datasets.native", "tools.profile_forward",
+        "tools.profile_encode", "tools.microbench", "tools.roofline", "tools.verify_scene",
+        "tools.microbench_loader")}
     assert want <= set(report["modules"]), want - set(report["modules"])
     assert not report["bad"], report["bad"]
-    assert len(report["modules"]) >= 74  # every module of the port was imported
+    assert len(report["modules"]) >= 80  # every module of the port was imported
 
 
 def _imported_names(path: str) -> list[str]:

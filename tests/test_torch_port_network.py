@@ -14,16 +14,22 @@
     (llff_eval, nerf_eval) with S = 6 (nerf_eval), V = 4, B = 2 and render
     slabs of 256 bundles (nerf_chunk_size) at 64x96.
 Both run the plain PyTorch path on the CPU in float32.
+
+(b)'s two JAX references trace and compile in threads of their own, and the
+CLI test's interpreter runs beside them (``started_early``, set up by the
+first test that needs them).
 """
 
 import dataclasses
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from gdb_nerf_tpu_torch.models.network import Network
@@ -177,11 +183,9 @@ def rel_l1(a, b) -> float:
     return float(np.abs(a - b).sum() / np.abs(b).sum())
 
 
-def assert_port_matches_jax_network(rng, batch, **kw):
-    """The JAX Network and the port on ``batch`` with the same random
-    weights (BatchNorm statistics randomized): rgb >= 60 dB, mvs_depth and
-    nerf_depth within 1e-4 relative L1; with ``debug_outputs`` in ``kw``,
-    ``spb`` (the port's int32, the JAX Network's float counts) equal."""
+def jax_network_ref(rng, batch, **kw):
+    """The JAX Network of flags ``kw`` on ``batch``, with random weights drawn
+    from ``rng`` (BatchNorm statistics randomized) -> (variables, ret)."""
     flags = sorted(k for k in os.environ if k.startswith("GDBN_"))
     assert not flags, f"GDBN_* variables change the JAX reference: {flags}"
     from gdb_nerf_tpu.models.network import Network as JaxNetwork
@@ -190,7 +194,15 @@ def assert_port_matches_jax_network(rng, batch, **kw):
     jnet = JaxNetwork(**kw)
     variables = jax_variables(jnet, jbatch, rng)
     ret_j, _, _ = run_jitted(lambda v, b: jnet.apply(v, b, train=False), variables, jbatch)
+    return variables, ret_j
 
+
+def assert_port_matches_jax_network(batch, variables, ret_j, **kw):
+    """The port with the JAX Network's ``variables`` on ``batch`` against the
+    JAX Network's render ``ret_j`` (``jax_network_ref``): rgb >= 60 dB,
+    mvs_depth and nerf_depth within 1e-4 relative L1; with ``debug_outputs``
+    in ``kw``, ``spb`` (the port's int32, the JAX Network's float counts)
+    equal."""
     net = Network(**kw).eval()
     net.load_state_dict(state_dict_from_jax(variables), strict=True)
     ret, _, _ = net(torch_batch(batch))
@@ -208,22 +220,56 @@ def assert_port_matches_jax_network(rng, batch, **kw):
         assert differ == 0, f"spb differs at {differ} of {spb_j.size} bundles"
 
 
-@torch.no_grad()
-def test_port_matches_jax_network_small_config(rng):
-    assert_port_matches_jax_network(
-        rng, small_batch(rng), mvs_num_depth=(16, 8), max_num_samples=3, is_adaptive=True,
-        global_num_depth=64, debug_outputs=True)
+def small_config_case():
+    """(b) at the small config, from seed 0: (rng, batch, flags)."""
+    rng = np.random.default_rng(0)
+    return rng, small_batch(rng), dict(
+        mvs_num_depth=(16, 8), max_num_samples=3, is_adaptive=True, global_num_depth=64,
+        debug_outputs=True)
+
+
+def other_eval_flags_case():
+    """(b) at the other eval configs' flags, from seed 0: reweighting, S = 6,
+    V = 4, B = 2 and slabs of 256 bundles."""
+    rng = np.random.default_rng(0)
+    return rng, small_batch(rng, V=4, H=64, W=96, B=2), dict(
+        mvs_num_depth=(16, 8), max_num_samples=6, is_adaptive=True, global_num_depth=64,
+        reweighting=True, nerf_chunk_size=256, debug_outputs=True)
+
+
+PARITY_CASES = {"small": small_config_case, "other_flags": other_eval_flags_case}
+
+
+@pytest.fixture(scope="module")
+def started_early():
+    """Each parity case's (batch, flags, future JAX reference), the references
+    traced and compiled in threads of their own, and the CLI test's
+    interpreter (``"cli"``), all started together."""
+    with ThreadPoolExecutor(len(PARITY_CASES)) as pool:
+        early = {}
+        for name, case in PARITY_CASES.items():
+            rng, batch, kw = case()
+            early[name] = (batch, kw, pool.submit(jax_network_ref, rng, batch, **kw))
+        early["cli"] = Clis(*cli_commands())
+        try:
+            yield early
+        finally:
+            early["cli"].kill()
 
 
 @torch.no_grad()
-def test_port_matches_jax_network_at_the_other_eval_flags(rng):
+def test_port_matches_jax_network_small_config(started_early):
+    batch, kw, ref = started_early["small"]
+    assert_port_matches_jax_network(batch, *ref.result(), **kw)
+
+
+@torch.no_grad()
+def test_port_matches_jax_network_at_the_other_eval_flags(started_early):
     """Reweighting, S = 6, V = 4, B = 2 and slabs of 256 bundles, in one case
     (``spb`` concatenated over the slabs)."""
-    batch = small_batch(rng, V=4, H=64, W=96, B=2)
+    batch, kw, ref = started_early["other_flags"]
     assert Network(nerf_chunk_size=256).num_chunks(32, 48) == 8
-    assert_port_matches_jax_network(
-        rng, batch, mvs_num_depth=(16, 8), max_num_samples=6, is_adaptive=True,
-        global_num_depth=64, reweighting=True, nerf_chunk_size=256, debug_outputs=True)
+    assert_port_matches_jax_network(batch, *ref.result(), **kw)
 
 
 @torch.no_grad()
@@ -285,27 +331,53 @@ print(json.dumps(report))
 """
 
 
-def run_clis(commands, env=None, timeout=600) -> list:
-    """Each (module, argv) of ``commands`` run in one fresh interpreter in the
-    repo's root; returns one namespace (returncode, stdout, stderr) each."""
-    import json
-    from types import SimpleNamespace
+class Clis:
+    """Each (module, argv) of ``commands`` started in one fresh interpreter in
+    the repo's root, one after another; ``.result()`` waits for them."""
 
-    out = subprocess.run([sys.executable, "-c", _CLI_RUNNER, json.dumps(commands)], cwd=REPO,
-                         capture_output=True, text=True, timeout=timeout, env=env)
-    assert out.returncode == 0, out.stderr[-3000:]
-    return [SimpleNamespace(**r) for r in json.loads(out.stdout.splitlines()[-1])]
+    def __init__(self, commands, env=None, timeout=600):
+        import json
+
+        self.timeout = timeout
+        self.proc = subprocess.Popen([sys.executable, "-c", _CLI_RUNNER, json.dumps(commands)],
+                                     cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True, env=env)
+
+    def result(self) -> list:
+        """Wait for the commands: one namespace (returncode, stdout, stderr)
+        each."""
+        import json
+        from types import SimpleNamespace
+
+        try:
+            out, err = self.proc.communicate(timeout=self.timeout)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise
+        assert self.proc.returncode == 0, err[-3000:]
+        return [SimpleNamespace(**r) for r in json.loads(out.splitlines()[-1])]
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
 
 
-def test_cli_renders_requests_on_cpu():
-    """The port's CLI end to end on the CPU, at a small synthetic frame."""
+def cli_commands():
+    """The CLI test's commands and environment: a small synthetic frame on the
+    CPU, and (without a GPU) the same without ``device cpu``, which must
+    stop."""
     args = ["--type", "network", "--cfg_file", "configs/dtu_eval.yaml", "synthetic", "True",
             "synthetic_hw", "[64,128]", "device", "cpu"]
     commands = [("gdb_nerf_tpu_torch.run", args)]
     if not torch.cuda.is_available():  # the default device is cuda: no silent CPU run
         commands.append(("gdb_nerf_tpu_torch.run", args[:-2]))
-    outs = run_clis(commands, env={**os.environ,
-                                   "workspace": os.path.join(REPO, "build", "workspace")})
+    return commands, {**os.environ, "workspace": os.path.join(REPO, "build", "workspace")}
+
+
+def test_cli_renders_requests_on_cpu(started_early):
+    """The port's CLI end to end on the CPU, at a small synthetic frame."""
+    outs = started_early["cli"].result()
     out = outs[0]
     assert out.returncode == 0, out.stderr[-2000:]
     assert "Mean forward latency:" in out.stdout and "over 7 batches (cpu" in out.stdout

@@ -43,8 +43,7 @@ from gdb_nerf_tpu_torch.train import losses, optim
 from gdb_nerf_tpu_torch.train.step import make_train_step, to_device_train
 from gdb_nerf_tpu_torch.utils import checkpoint
 from gdb_nerf_tpu_torch.utils.convert import state_dict_from_jax
-from tests.test_torch_port_network import (jax_init, psnr, run_clis, run_jitted,
-                                           small_batch)
+from tests.test_torch_port_network import Clis, jax_init, psnr, run_jitted, small_batch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -247,17 +246,42 @@ def train_case():
     return batch, jbatch, params, stats0
 
 
+_JAX_STEPS_LOCK = threading.Lock()
+
+
 def jax_steps() -> dict:
     """``train_case`` and the JAX step in each of ``DTYPES`` on it (the same
     init in both), made once for this module: the two steps trace and
     compile in threads, side by side."""
-    if not _JAX_STEPS:
-        batch, jbatch, params, stats0 = train_case()
-        with ThreadPoolExecutor(len(DTYPES)) as pool:
-            steps = dict(zip(DTYPES, pool.map(
-                lambda dt: jax_step(dt, params, stats0, jbatch), DTYPES)))
-        _JAX_STEPS.update(batch=batch, params=params, stats0=stats0, steps=steps)
+    with _JAX_STEPS_LOCK:
+        if not _JAX_STEPS:
+            batch, jbatch, params, stats0 = train_case()
+            with ThreadPoolExecutor(len(DTYPES)) as pool:
+                steps = dict(zip(DTYPES, pool.map(
+                    lambda dt: jax_step(dt, params, stats0, jbatch), DTYPES)))
+            _JAX_STEPS.update(batch=batch, params=params, stats0=stats0, steps=steps)
     return _JAX_STEPS
+
+
+@pytest.fixture(scope="module", autouse=True)
+def started_early(tmp_path_factory):
+    """The module's two slow waits, started with its first test: the JAX
+    steps (``jax_steps``) in a background thread, and the CLIs of
+    ``test_train_net_and_evaluate_cli_on_cpu`` in their interpreter; the
+    tests that need them wait for them.  An error in the background is
+    raised again by the test's own call."""
+    with ThreadPoolExecutor(1) as pool:
+        future = pool.submit(jax_steps)
+        _EARLY["workspace"] = tmp_path_factory.mktemp("train_clis")
+        _EARLY["clis"] = Clis(*train_clis(str(_EARLY["workspace"])))
+        try:
+            yield
+        finally:
+            _EARLY.pop("clis").kill()
+            future.exception()
+
+
+_EARLY: dict = {}
 
 
 def test_losses_match_jax(rng):
@@ -594,25 +618,33 @@ def test_retention_and_pretrain(tmp_path, capsys):
     assert checkpoint.load_pretrain(cfg) is None
 
 
-def test_train_net_and_evaluate_cli_on_cpu(tmp_path):
-    """train_net at 64x64: 2 steps, latest.pth, val with its metrics; then
-    run --type evaluate on that checkpoint: psnr and ssim per scene, lpips
-    SKIPPED, FPS; then measure_train_step at 64x64, B = 1, one step a
-    round: its warm loss, timing and JSON lines; all three CLIs in one
-    interpreter.  Each stops without a GPU unless told to run on the CPU."""
-    import json
-
-    env = {**os.environ, "workspace": str(tmp_path), "OMP_NUM_THREADS": str(FEW_THREADS)}
+def train_clis(workspace: str):
+    """train_net, run --type evaluate and measure_train_step (on the CPU, and
+    measure_train_step without --device) at 64x64, and their environment."""
+    env = {**os.environ, "workspace": workspace, "OMP_NUM_THREADS": str(FEW_THREADS)}
     common = ["--cfg_file", "configs/dtu_pretrain.yaml", "synthetic", "True",
               "synthetic_hw", "[64,64]", "train.batch_size", "1", "train.num_workers", "0"]
     tool = ["--size", "64", "64", "--batch", "1", "--n", "1"]
-    out, out_eval, out_tool, out_refused = run_clis([
+    return [
         ("gdb_nerf_tpu_torch.train_net", [*common, "ep_iter", "2", "train.epoch", "1", "device",
                                           "cpu"]),
         ("gdb_nerf_tpu_torch.run", ["--type", "evaluate", *common, "device", "cpu"]),
         ("gdb_nerf_tpu_torch.tools.measure_train_step", [*tool, "--device", "cpu"]),
         ("gdb_nerf_tpu_torch.tools.measure_train_step", tool),
-    ], env=env)
+    ], env
+
+
+def test_train_net_and_evaluate_cli_on_cpu():
+    """train_net at 64x64: 2 steps, latest.pth, val with its metrics; then
+    run --type evaluate on that checkpoint: psnr and ssim per scene, lpips
+    SKIPPED, FPS; then measure_train_step at 64x64, B = 1, one step a
+    round: its warm loss, timing and JSON lines; all three CLIs in one
+    interpreter (started with the module, ``started_early``).  Each stops
+    without a GPU unless told to run on the CPU."""
+    import json
+
+    tmp_path = _EARLY["workspace"]
+    out, out_eval, out_tool, out_refused = _EARLY["clis"].result()
     assert out_tool.returncode == 0, out_tool.stderr[-3000:]
     assert "warm loss: " in out_tool.stdout and "train step: " in out_tool.stdout
     result = json.loads(out_tool.stdout.splitlines()[-1])["measure_train_step"]
