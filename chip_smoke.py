@@ -9,8 +9,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      started together (build seconds, ptxas info);
   2. the bundle-head kernel against its plain PyTorch version on the card
      at the dtu_eval head shapes (N = 245,760 samples, V = 3; V = 2; a
-     ragged N), in float32 and bf16, with both times and the bound, after
-     a check that ptxas spilled nothing in the kernel's build;
+     ragged N) and at the per-scene fine-tune's largest (N = 960,000, the
+     NeRF 800x800 frame at S = 6, V = 4; a ragged N at V = 4), in float32
+     and bf16, with both times and the bound (V = 3 and V = 4), after a
+     check that ptxas spilled nothing in the kernel's build;
   2b. after a check that ptxas spilled nothing in plane_conv.cu's build, the
      conv microbench path (gdb_nerf_tpu_torch/tools/microbench_conv.py)
      driven in-process, with the plane-conv kernels' launch counts set to 0
@@ -85,7 +87,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      in float32 and bf16, each rank's rows through the bundle-head kernel
      (its launches counted on each rank), held to the unsharded render,
      with debug_outputs on: the gathered per-bundle sample counts (spb)
-     equal to the unsharded ones;
+     equal to the unsharded ones; (d) on the same two ranks, (a)'s step in
+     bf16 on float32 master weights (train/mixed.py) from the same weights
+     and halves: the ranks' float32 gradients, parameters and BatchNorm
+     statistics equal bit for bit, the master weights float32, the loss
+     within PARALLEL_BF16_LOSS_* of (a)'s float32 2-rank loss, each rank's
+     step time and peak memory;
   8. the bf16 gate on trained weights, the sampling diagnostics and LPIPS:
      (a) tools/bf16_gate.py's recipe (configs/dtu_pretrain.yaml at 256x320,
      B = 4, V = 3, 3 epochs of 120 steps, float32, TF32 off) through
@@ -132,16 +139,36 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      (e) tools/verify_scene.py on the card with its five checks; (f)
      tools/microbench_loader.py; the phase's seconds and one JSON line of
      the stage table;
-  12. one JSON line of the training numbers, one of phase 7's, one of phase
-     8's, one of phases 9's and 10's, one of kernel results (the bundle
-     head's with its launches in 6c, 6d, 7c, 8b, 8c and 9d), then the JSON
-     result line, or, when the gate of 8b failed, the failure.
+  12. the per-scene fine-tune (FINETUNE: configs/dtu/scan114.yaml,
+     configs/llff/fern.yaml, configs/nerf/lego.yaml, each read by the port's
+     load_cfg at its full width, on the synthetic loader at its protocol
+     size), warm-started from 8a's checkpoint: scan114 resumes its own
+     directory from it (copied in as <epoch>.pth), fern and lego through
+     train.pretrain; per config the evaluator's per-scene PSNR/SSIM with the
+     warm-start weights, then train_net's main (before the first step the
+     network equals the warm-start file, and the epoch and LR are the
+     route's and the schedule's; every loss finite; the last epoch's
+     checkpoint written; step time, peak memory), then run --type
+     evaluate's main; the bundle-head kernel's launches at V = 4 counted in
+     Trainer.val and in evaluate (> 0), and on one V = 4 frame of the
+     fine-tuned weights the head stage's inputs through the kernel and the
+     plain head in float32 and bf16 (phase 2's tolerances);
+  13. tools/measure_frame.py in-process at dtu_eval 512x640, llff_eval
+     640x960 and nerf_eval 800x800 in float32 (TF32 off) and bf16, and at
+     dtu_eval 1088x1920 in bf16: one JSON line of the rows, the bundle-head
+     kernel launched in each;
+  14. one JSON line of the training numbers, one of phase 7's, one of phase
+     8's, one of phases 9's and 10's, one of phase 12's, one of kernel
+     results (the bundle head's with its launches in 6c, 6d, 7c, 8b, 8c, 9d,
+     12 and 13), then the JSON result line, or, when the gate of 8b failed,
+     the failure.
 
-Needs one CUDA device, nvcc, torch and numpy; no network, no yaml, and
-nothing of jax or of the JAX package (gdb_nerf_tpu): the config literal and
-the requests below are made here, and tests/test_torch_port_imports.py
-holds them equal to the JAX package's load_cfg and loader and to the
-port's own.
+Needs one CUDA device, nvcc, torch, numpy and PyYAML (phase 12 and the
+evaluate runs of 8d read the configs through the port's load_cfg); no
+network, and nothing of jax or of the JAX package (gdb_nerf_tpu): the
+config literals and the requests below are made here, and
+tests/test_torch_port_imports.py holds them equal to the JAX package's
+load_cfg and loader and to the port's own.
 """
 
 from __future__ import annotations
@@ -360,6 +387,33 @@ def assert_no_spill(source: str, build_log: str) -> None:
         raise AssertionError(f"{source}: ptxas reports {spill} bytes of spill (or no report)")
 
 
+def held_to_plain(kernel, head, packed, vox, payload, frd) -> tuple[bool, float, float]:
+    """``kernel`` on the pack ``packed`` against bundle_head_reference of
+    ``head`` on the same inputs, at the tolerances for the inputs' dtype
+    (F32_* or BF16_ATOL).  Returns (within them, max |d sigma|, max |d feat|)."""
+    import torch
+
+    from gdb_nerf_tpu_torch.kernels.bundle_head import bundle_head_reference
+
+    with torch.inference_mode():
+        sigma, feat = kernel.launch(packed, vox, payload, frd)
+        s_ref, f_ref = bundle_head_reference(head, vox, payload, frd)
+    err_s = (sigma - s_ref).abs().max().item()
+    err_f = (feat.float() - f_ref.float()).abs().max().item()
+    if payload.dtype == torch.float32:
+        ok = (bool(((sigma - s_ref).abs() <= F32_ATOL + F32_RTOL * s_ref.abs()).all())
+              and bool(((feat - f_ref).abs() <= F32_ATOL + F32_RTOL * f_ref.abs()).all()))
+    else:
+        ok = err_s <= BF16_ATOL and err_f <= BF16_ATOL
+    return ok, err_s, err_f
+
+
+# Phase 2's largest head call: the per-scene fine-tune configurations render
+# their test views at V = 4 (configs/{dtu,llff,nerf}/*.yaml), and NeRF's
+# 800x800 frame at S = 6 gives the most samples, 400 * 400 * 6.
+K1_N_V4 = 400 * 400 * 6
+
+
 def phase_kernel_vs_plain(kernel, heads):
     """K1 against bundle_head_reference on the card, each dtype with its own
     head (``heads[dtype]``), after a check that ptxas spilled nothing in
@@ -374,9 +428,9 @@ def phase_kernel_vs_plain(kernel, heads):
     print("[k1] ptxas: no spill in either instantiation")
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = torch.device("cuda")
-    result = {}
+    result = {"v4": []}
     n_full = 256 * 320 * 3  # bundles of a 512x640 frame x 3 samples
-    for n, V in ((n_full, 3), (n_full, 2), (n_full - 37, 3)):
+    for n, V in ((n_full, 3), (n_full, 2), (n_full - 37, 3), (K1_N_V4, 4), (K1_N_V4 - 37, 4)):
         base = (
             torch.randn(n, 8, device="cuda", generator=gen),
             torch.rand(V, n, 31, device="cuda", generator=gen),
@@ -385,31 +439,23 @@ def phase_kernel_vs_plain(kernel, heads):
         for dt, head in heads.items():
             packed = head.packed_weights()
             vox, payload, frd = (t.to(dt) for t in base)
-            sigma, feat = kernel.launch(packed, vox, payload, frd)
-            torch.cuda.synchronize()
-            with torch.inference_mode():
-                s_ref, f_ref = bundle_head_reference(head, vox, payload, frd)
-            err_s = (sigma - s_ref).abs().max().item()
-            err_f = (feat.float() - f_ref.float()).abs().max().item()
-            if dt == torch.float32:
-                ok = (bool(((sigma - s_ref).abs() <= F32_ATOL + F32_RTOL * s_ref.abs()).all())
-                      and bool(((feat - f_ref).abs() <= F32_ATOL + F32_RTOL * f_ref.abs()).all()))
-            else:
-                ok = err_s <= BF16_ATOL and err_f <= BF16_ATOL
+            ok, err_s, err_f = held_to_plain(kernel, head, packed, vox, payload, frd)
             line = (f"[k1] N={n} V={V} {str(dt)[6:]}: max|dsigma|={err_s:.3e} "
                     f"max|dfeat|={err_f:.3e}")
-            if n == n_full and V == 3:
+            if (n == n_full and V == 3) or V == 4:
                 with torch.inference_mode():
                     ms = timed_ms(lambda: kernel.launch(packed, vox, payload, frd), dev, 20)
                     plain_ms = timed_ms(lambda: bundle_head_reference(head, vox, payload, frd),
                                         dev, 20)
                 line += f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
                 b_ms, b_by = bound_ms(*work(n, V, dt), dt)
-                line += f" bound {b_ms:.4f} ms ({b_by})"
+                line += f" bound {b_ms:.4f} ms ({b_by}, {100 * b_ms / ms:.1f} % of it)"
                 fields = {"max_abs_err": max(err_s, err_f), "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                           "dtype": str(dt)[6:]}
-                if dt == torch.float32:
+                if V == 4:
+                    result["v4"].append({"n": n, "views": V, **fields})
+                elif dt == torch.float32:
                     result.update(fields)
                 else:
                     result["bf16"] = fields
@@ -942,7 +988,7 @@ def phase_val(trainer, cfg, packed_before):
     import torch
 
     from gdb_nerf_tpu_torch.datasets import make_data_loader
-    from gdb_nerf_tpu_torch.kernels.bundle_head import bundle_head_reference, pack_weights
+    from gdb_nerf_tpu_torch.kernels.bundle_head import pack_weights
     from gdb_nerf_tpu_torch.runtime.registry import make_evaluator
 
     head = trainer.network.nerf
@@ -962,13 +1008,9 @@ def phase_val(trainer, cfg, packed_before):
     packed = head.packed_weights()
     if torch.equal(packed, packed_before) or not torch.equal(packed, pack_weights(head)):
         raise AssertionError("the head's kernel pack did not follow the optimizer steps")
-    with torch.inference_mode():
-        vox, payload, frd = inputs[0]
-        sigma, feat = head.kernel.launch(packed, vox, payload, frd)
-        s_ref, f_ref = bundle_head_reference(head, vox, payload, frd)
-    ok = (bool(((sigma - s_ref).abs() <= F32_ATOL + F32_RTOL * s_ref.abs()).all())
-          and bool(((feat - f_ref).abs() <= F32_ATOL + F32_RTOL * f_ref.abs()).all()))
-    err = max((sigma - s_ref).abs().max().item(), (feat - f_ref).abs().max().item())
+    vox, payload, frd = inputs[0]
+    ok, *errs = held_to_plain(head.kernel, head, packed, vox, payload, frd)
+    err = max(errs)
     print(f"[val] kernel on the trained weights vs the plain head, N={vox.shape[0]}: max |d| "
           f"{err:.3e} (atol {F32_ATOL}, rtol {F32_RTOL}); pack refreshed after the steps")
     if not ok:
@@ -1023,6 +1065,9 @@ PARALLEL_SENSITIVE, PARALLEL_SENSITIVE_RTOL = ("feature_net.", "depth_net.cost_r
 PARALLEL_LOSS_RTOL, PARALLEL_BN_ATOL = 1e-5, 1e-5
 PARALLEL_PARAMS_APART = 0.03
 SHARDED_F32_ATOL, SHARDED_BF16_DB = 1e-5, 60.0
+# 7d: the bf16 2-rank step's loss against the float32 2-rank step's, the
+# bf16 bound of tests/test_torch_port_train.py (as the CPU's 2-rank test).
+PARALLEL_BF16_LOSS_RTOL, PARALLEL_BF16_LOSS_ATOL = 5e-3, 1e-3
 PARALLEL_TIMEOUT = 600  # seconds for the ranks of one launch
 
 
@@ -1131,6 +1176,18 @@ def rank_main(out_dir: str) -> None:
     out["allreduce_numel"] = sum(g.numel() for g in grads)
     del trainer, grads
     free_cuda()
+    # 7d: the same step in bf16 on float32 master weights, from the same
+    # weights on the same half.
+    trainer = make_trainer(train_cfg((512, 640), share, 1, "bfloat16"), device, case["state"],
+                           group)
+    torch.cuda.reset_peak_memory_stats(device)
+    out["step_bf16"] = step_record(trainer, trainer.train_step(half))
+    out["step_bf16"]["master_dtypes"] = sorted({str(p.dtype) for p in trainer.network.parameters()})
+    out["step_bf16"]["compute_dtype"] = str(trainer.mixed.compute.compute_dtype)
+    trainer.train_step(half)
+    out["step_bf16"]["warm_ms"] = trainer.step_ms[-1]
+    del trainer
+    free_cuda()
     g, sd = golden_state_dict()
     out["render"] = {}
     for dt in ("float32", "bfloat16"):
@@ -1238,6 +1295,42 @@ def compare_steps(label: str, got: dict, want: dict) -> dict:
             "param_max_abs": param_err, "params_apart": moved, "bn_abs_err": bn_err}
 
 
+def compare_bf16_ranks(ranks) -> dict:
+    """7d. The two ranks' bf16 steps on float32 master weights (the rules of
+    tests/test_torch_port_parallel.py::test_two_rank_bf16_step_takes_one_float32_update):
+    their float32 gradients, parameters and BatchNorm statistics equal bit
+    for bit, the master weights float32, the loss within PARALLEL_BF16_LOSS_RTOL
+    relative (+ PARALLEL_BF16_LOSS_ATOL) of the float32 2-rank step's."""
+    import torch
+
+    a, b = (r["step_bf16"] for r in ranks)
+    for k, g in a["grads"].items():
+        if g.dtype != torch.float32 or not torch.equal(g, b["grads"][k]):
+            raise AssertionError(f"7d: the ranks' bf16-step gradients differ at {k} ({g.dtype})")
+    for k, v in a["state"].items():
+        if not torch.equal(v, b["state"][k]):
+            raise AssertionError(f"7d: the ranks differ after the bf16 step at {k}")
+        if v.is_floating_point() and v.dtype != torch.float32:
+            raise AssertionError(f"7d: {k} is {v.dtype} after the bf16 step, not float32")
+    loss32, loss16 = ranks[0]["step"]["stats"]["loss"], a["stats"]["loss"]
+    bound = PARALLEL_BF16_LOSS_RTOL * abs(loss32) + PARALLEL_BF16_LOSS_ATOL
+    for rank, r in enumerate(ranks):
+        s = r["step_bf16"]
+        print(f"[parallel] 7d rank {rank} bf16 ({s['compute_dtype']}) on master weights "
+              f"{s['master_dtypes']}: step {s['ms']:.2f} ms (CUDA events; the first bf16 step), "
+              f"a second step {s['warm_ms']:.2f} ms, peak memory {s['peak_gib']:.2f} GiB")
+    print(f"[parallel] 7d 2 gloo ranks bf16: gradients, parameters and BatchNorm statistics equal "
+          f"bit for bit on both ranks, all float32; loss {loss16:.8f} against the float32 2-rank "
+          f"step's {loss32:.8f} (|d| {abs(loss16 - loss32):.2e}, bound {bound:.2e})")
+    if a["master_dtypes"] != ["torch.float32"] or abs(loss16 - loss32) > bound:
+        raise AssertionError(f"7d: master weights {a['master_dtypes']}, loss {loss16} against "
+                             f"{loss32}")
+    return {"loss": loss16, "loss_float32": loss32, "loss_abs_err": abs(loss16 - loss32),
+            "loss_bound": bound, "rank_step_ms": [r["step_bf16"]["ms"] for r in ranks],
+            "rank_warm_step_ms": [r["step_bf16"]["warm_ms"] for r in ranks],
+            "rank_peak_gib": [r["step_bf16"]["peak_gib"] for r in ranks]}
+
+
 def phase_parallel(single: dict) -> dict:
     """7a: two gloo ranks on one card, each half of the batch, against the
     one-process step; 7b: one step through the same code over nccl in a
@@ -1271,6 +1364,7 @@ def phase_parallel(single: dict) -> dict:
     result["rank_peak_gib"] = [r["step"]["peak_gib"] for r in ranks]
     result["allreduce_ms"] = [sorted(r["allreduce_ms"])[2] for r in ranks]
     result["single_step_ms"], result["single_peak_gib"] = single["ms"], single["peak_gib"]
+    result["bf16"] = compare_bf16_ranks(ranks)
 
     g, sd = golden_state_dict()
     launches = []
@@ -2006,6 +2100,365 @@ def phase_tools(device: str = "cuda") -> dict:
     return out
 
 
+# Phase 12: the per-scene fine-tune configurations through the port's CLIs
+# (train_net, then run --type evaluate), each YAML read by the port's
+# load_cfg at its full width, one per dataset family.  Route "ii" resumes
+# the fine-tune's own directory from phase 8a's checkpoint copied in as
+# <epoch>.pth (the reference's route); route "i" warm-starts through
+# train.pretrain from it copied in as the 'pretrained' experiment's
+# latest.pth (a fresh optimizer at epoch 0).  Each fine-tune runs
+# FINETUNE_EPOCHS epochs of FINETUNE_EP_ITER steps (the YAMLs' train.epoch
+# 233 is the pretrained epoch + 10).  The head-stage check holds K1 to the
+# plain head at phase 2's tolerances on one V = 4 frame of each.
+FINETUNE = (("scan114", "configs/dtu/scan114.yaml", "ii", (512, 640)),
+            ("fern", "configs/llff/fern.yaml", "i", (640, 960)),
+            ("lego", "configs/nerf/lego.yaml", "i", (800, 800)))
+FINETUNE_EPOCHS, FINETUNE_EP_ITER = 2, 3
+FINETUNE_VIEWS = 4  # the YAMLs' test.sampler_meta.input_views_num
+
+
+def finetune_workspace() -> str:
+    return os.path.join(REPO, "build", "smoke_finetune", "workspace")
+
+
+class HeadLaunches:
+    """While active, counts the bundle-head kernel's launches by the call's
+    view count: each call's count read before and after it, by forward hooks
+    on ``head`` or, without one, on every BundleNeRF the process calls."""
+
+    def __init__(self, head=None):
+        self.head, self.by_views = head, {}
+
+    def __enter__(self):
+        from torch.nn.modules import module
+
+        from gdb_nerf_tpu_torch.models.nerf_head import BundleNeRF
+
+        before = {}
+
+        def pre(m, args):
+            if isinstance(m, BundleNeRF):
+                before[id(m)] = (m.kernel.launches, int(args[1].shape[0]))
+
+        def post(m, args, out):
+            if isinstance(m, BundleNeRF) and id(m) in before:
+                n0, views = before.pop(id(m))
+                if m.kernel.launches > n0:
+                    self.by_views[views] = self.by_views.get(views, 0) + m.kernel.launches - n0
+
+        if self.head is None:
+            self._hooks = [module.register_module_forward_pre_hook(pre),
+                           module.register_module_forward_hook(post)]
+        else:
+            self._hooks = [self.head.register_forward_pre_hook(pre),
+                           self.head.register_forward_hook(post)]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self._hooks:
+            h.remove()
+
+
+class observed_trainers:
+    """While active, records of every Trainer the process trains with: the
+    epoch, the LR of each parameter group, the schedule's step count and a
+    copy of the network's state at its first ``train_epoch`` call, then each
+    epoch, each step's loss and view count, and the bundle-head kernel's
+    launches by view count of the network its ``val`` renders through
+    (``HeadLaunches`` on that head).  The trainer runs unchanged."""
+
+    def __enter__(self):
+        from gdb_nerf_tpu_torch.train.trainer import Trainer
+
+        self.records, self._saved = [], (Trainer.train_epoch, Trainer.train_step)
+        epoch_fn, step_fn = self._saved
+        records = self.records
+
+        def record_of(trainer):
+            return next((r for r in records if r["trainer"] is trainer), None)
+
+        def train_epoch(trainer, epoch, loader, recorder):
+            rec = record_of(trainer)
+            if rec is None:
+                rec = {"trainer": trainer, "first_epoch": epoch,
+                       "first_lr": [g["lr"] for g in trainer.optimizer.param_groups],
+                       "first_count": trainer.scheduler.last_epoch,
+                       "state_before": {k: v.detach().cpu().clone()
+                                        for k, v in trainer.network.state_dict().items()},
+                       "epochs": [], "losses": [], "views": [],
+                       "val_launches": HeadLaunches((trainer.network if trainer.mixed is None
+                                                     else trainer.mixed.compute).nerf).__enter__()}
+                records.append(rec)
+            rec["epochs"].append(epoch)
+            return epoch_fn(trainer, epoch, loader, recorder)
+
+        def train_step(trainer, batch):
+            stats = step_fn(trainer, batch)
+            rec = record_of(trainer)
+            if rec is not None:
+                rec["losses"].append(stats["loss"])
+                rec["views"].append(int(batch["src_views"]["rgb"].shape[1]))
+            return stats
+
+        Trainer.train_epoch, Trainer.train_step = train_epoch, train_step
+        return self
+
+    def __exit__(self, *exc):
+        from gdb_nerf_tpu_torch.train.trainer import Trainer
+
+        Trainer.train_epoch, Trainer.train_step = self._saved
+        for rec in self.records:
+            rec["val_launches"].__exit__()
+
+
+class Tee:
+    """stdout that is also kept, for the lines a CLI prints."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, text):
+        self.out.write(text)
+        self.lines.append(text)
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.lines)
+
+
+def scene_metrics(text: str) -> dict:
+    """The evaluator's per-scene lines (``<scene> psnr: P ssim: S``)."""
+    out = {}
+    for line in text.splitlines():
+        parts = line.split()
+        if len(parts) >= 5 and parts[1] == "psnr:" and parts[3] == "ssim:":
+            out[parts[0]] = {"psnr": float(parts[2]), "ssim": float(parts[4])}
+    return out
+
+
+def finetune_head_check(cfg, state: dict, batch: dict, device: str = "cuda") -> dict:
+    """12, the head stage on real inputs: one V = FINETUNE_VIEWS frame through
+    the Network's stage methods (tools/profile_forward.run_stages) in each
+    dtype with ``state``, the inputs that head_composite hands the head taken
+    by a hook, then K1 against the plain head on them (held_to_plain)."""
+    import torch
+
+    from gdb_nerf_tpu_torch.runtime.renderer import to_device
+    from gdb_nerf_tpu_torch.tools import measure_common, profile_forward
+
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        renderer = measure_common.renderer_for(SimpleNamespace(**{**vars(cfg), "compute_dtype": dt}),
+                                               device, state)
+        head, inputs = renderer.network.nerf, []
+        hook = head.register_forward_pre_hook(lambda m, args: inputs.append(args[:3]) or None)
+        with torch.inference_mode():
+            ret = profile_forward.run_stages(renderer.network, to_device(batch, device),
+                                             lambda name, fn: fn())
+        hook.remove()
+        vox, payload, frd = inputs[0]
+        ok, *errs = held_to_plain(head.kernel, head, head.packed_weights(), vox, payload, frd)
+        err = max(errs)
+        out[dt] = {"n": int(vox.shape[0]), "views": int(payload.shape[0]), "max_abs_err": err,
+                   "rgb_finite": bool(torch.isfinite(ret["rgb"]).all())}
+        print(f"[finetune] head stage {dt}: N={vox.shape[0]} V={payload.shape[0]}, K1 against "
+              f"the plain head max |d| {err:.3e} ("
+              + (f"atol {F32_ATOL}, rtol {F32_RTOL}" if dt == "float32" else f"atol {BF16_ATOL}")
+              + ")")
+        if not ok or payload.shape[0] != FINETUNE_VIEWS or not out[dt]["rgb_finite"]:
+            raise AssertionError(f"12: the head stage of {dt}: {out[dt]}")
+        del renderer, head, inputs, vox, payload, frd, ret
+        free_cuda()
+    return out
+
+
+def rig_check(cfg, batch: dict, train_views) -> float:
+    """12, the synthetic rig at the config's size: FINETUNE_VIEWS source views
+    at test, the training's view counts among the YAML's with probability >
+    0, and no target camera on a source camera (ROADMAP queue 3's trap).
+    Returns the least distance between the target's and a source's centre."""
+    views = batch["src_views"]["rgb"].shape[1]
+    centre = lambda ext: np.linalg.inv(np.asarray(ext, np.float64))[:3, 3]  # noqa: E731
+    tar = centre(batch["tar_views"]["extrinsics"][0])
+    least = min(float(np.linalg.norm(centre(e) - tar)) for e in batch["src_views"]["extrinsics"][0])
+    meta = cfg.train.sampler_meta
+    allowed = {v for v, p in zip(meta.input_views_num, meta.input_views_prob) if p > 0}
+    if views != FINETUNE_VIEWS or least < 1.0 or not set(train_views) <= allowed:
+        raise AssertionError(f"12: test views {views}, the target {least:.3f} from a source, "
+                             f"training views {sorted(set(train_views))} against {sorted(allowed)}")
+    return least
+
+
+def phase_finetune(device: str = "cuda") -> dict:
+    """12. Each of FINETUNE warm-started from phase 8a's checkpoint (see the
+    comment above FINETUNE): the YAML's flags, the rig, the evaluator's
+    per-scene PSNR/SSIM with the warm-start weights, ``train_net``'s main
+    (before the first step the network equals the warm-start file, its
+    epoch and LR are the route's and the schedule's; every loss finite; the
+    last epoch's checkpoint written; Trainer.val through K1 at V = 4), then
+    ``run --type evaluate``'s main through K1 at V = 4, then the head-stage
+    check on the fine-tuned weights.  Prints the step time (CUDA events,
+    the first step excluded), the peak memory and the card."""
+    import contextlib
+    import shutil
+
+    import torch
+
+    from gdb_nerf_tpu_torch import run, train_net
+    from gdb_nerf_tpu_torch.config import load_cfg
+    from gdb_nerf_tpu_torch.datasets import make_data_loader
+    from gdb_nerf_tpu_torch.tools import measure_common
+    from gdb_nerf_tpu_torch.train.optim import make_lr_schedule
+    from gdb_nerf_tpu_torch.utils.checkpoint import load_network
+
+    if torch.are_deterministic_algorithms_enabled():
+        raise AssertionError("12: torch's deterministic algorithms are still on after phase 8a")
+    t0 = time.time()
+    smi = card()
+    on = [] if device == "cuda" else ["device", device]  # the CLIs' default device is cuda
+    ws = finetune_workspace()
+    shutil.rmtree(ws, ignore_errors=True)
+    warm_path = os.path.join(gate_dir(), "latest.pth")
+    warm = torch.load(warm_path, map_location="cpu", weights_only=True)
+    out = {"card": smi, "warm_start": {"file": os.path.relpath(warm_path, REPO),
+                                       "epoch": warm["epoch"], "step": warm["step"]}}
+    for name, yaml_path, route, (H, W) in FINETUNE:
+        t1 = time.time()
+        free_cuda()
+        probe = load_cfg(os.path.join(REPO, yaml_path), ["workspace", ws])
+        if route == "ii":  # resume the fine-tune's own directory
+            first_epoch, count = warm["epoch"] + 1, warm["scheduler"]["last_epoch"]
+            dest = os.path.join(probe.trained_model_dir, f"{warm['epoch']}.pth")
+        else:  # train.pretrain: a fresh optimizer at epoch 0
+            first_epoch, count = 0, 0
+            dest = os.path.join(ws, "trained_model", probe.task, probe.train.pretrain, "latest.pth")
+        os.makedirs(os.path.dirname(dest), exist_ok=True)
+        shutil.copyfile(warm_path, dest)
+        overrides = ["synthetic", "True", "synthetic_hw", f"[{H},{W}]", "workspace", ws,
+                     "ep_iter", str(FINETUNE_EP_ITER), "train.epoch",
+                     str(first_epoch + FINETUNE_EPOCHS), *on]
+        cfg = load_cfg(os.path.join(REPO, yaml_path), overrides)
+        print(f"[finetune] {yaml_path} ({cfg.exp_name}) route ({route}) at {H}x{W}: fpn "
+              f"{vars(cfg.fpn)}, mvs.num_depth {cfg.mvs.num_depth}, S={cfg.nerf.max_num_samples} "
+              f"adaptive {cfg.nerf.is_adaptive} reweighting {cfg.nerf.reweighting}, B="
+              f"{cfg.train.batch_size}, lr {cfg.train.lr}, train views "
+              f"{cfg.train.sampler_meta.input_views_num} p {cfg.train.sampler_meta.input_views_prob}, "
+              f"test views {cfg.test.sampler_meta.input_views_num}, eval_center "
+              f"{cfg.test.eval_center}; warm start {os.path.relpath(dest, REPO)}")
+        batch = measure_common.first_batches(cfg, 1)[0]
+        loader = make_data_loader(cfg, is_train=False)
+        before = Tee(sys.stdout)
+        renderer = measure_common.renderer_for(cfg, device, warm["net"])
+        with HeadLaunches() as launches_before, contextlib.redirect_stdout(before):
+            summary_before = run.evaluate(cfg, renderer, loader)
+        del renderer
+        free_cuda()
+        argv = ["--cfg_file", os.path.join(REPO, yaml_path), *overrides]
+        torch.cuda.reset_peak_memory_stats()
+        with observed_trainers() as seen:
+            train_net.main(argv)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        (rec,) = seen.records
+        trainer, launches_val = rec.pop("trainer"), rec.pop("val_launches")
+        lr_want = make_lr_schedule(cfg)(count)
+        same = all(torch.equal(rec["state_before"][k], v) for k, v in warm["net"].items())
+        ms = trainer.step_ms[1:]
+        last = os.path.join(cfg.trained_model_dir, f"{first_epoch + FINETUNE_EPOCHS - 1}.pth")
+        latest = torch.load(os.path.join(cfg.trained_model_dir, "latest.pth"), map_location="cpu",
+                            weights_only=True)
+        least = rig_check(cfg, batch, rec["views"])
+        print(f"[finetune] {name}: first step at epoch {rec['first_epoch']} (want {first_epoch}), "
+              f"LR {rec['first_lr'][0]:.6e} (want {lr_want:.6e}: the schedule at step "
+              f"{rec['first_count']}, epoch {rec['first_count'] // FINETUNE_EP_ITER} of "
+              f"{FINETUNE_EP_ITER} steps), the network before it equal to the warm-start file: "
+              f"{same}; epochs {rec['epochs']}, views {rec['views']}, losses "
+              + " ".join(f"{x:.5f}" for x in rec["losses"])
+              + f"; step {np.mean(ms):.2f} ms mean (CUDA events, first of {len(trainer.step_ms)} "
+              f"excluded; min {min(ms):.2f}, max {max(ms):.2f}), peak memory {peak:.2f} GiB over "
+              f"the steps and val; target {least:.2f} from the nearest source; on {smi}")
+        if (rec["first_epoch"] != first_epoch or rec["first_count"] != count
+                or any(lr != lr_want for lr in rec["first_lr"]) or not same
+                or not np.isfinite(rec["losses"]).all()
+                or len(rec["losses"]) != FINETUNE_EPOCHS * FINETUNE_EP_ITER
+                or not os.path.exists(last) or latest["epoch"] != first_epoch + FINETUNE_EPOCHS - 1):
+            raise AssertionError(f"12 {name}: the fine-tune did not start or end as its route and "
+                                 f"schedule give: {rec['first_epoch']}, {rec['first_count']}, "
+                                 f"{rec['first_lr']}, same {same}, {rec['losses']}, {last}")
+        del trainer
+        free_cuda()
+        after = Tee(sys.stdout)
+        with HeadLaunches() as launches_eval, contextlib.redirect_stdout(after):
+            summary_after = run.main(["--type", "evaluate", *argv])
+        loaded = f"[run] loaded {os.path.join(cfg.trained_model_dir, 'latest.pth')}" in after.text()
+        print(f"[finetune] {name}: K1 launches by view count: Trainer.val {launches_val.by_views}, "
+              f"run --type evaluate {launches_eval.by_views} (the warm start's evaluation "
+              f"{launches_before.by_views}); evaluate loaded the fine-tuned latest.pth: {loaded}")
+        for counted in (launches_val, launches_eval):
+            if set(counted.by_views) != {FINETUNE_VIEWS} or counted.by_views[FINETUNE_VIEWS] < len(loader):
+                raise AssertionError(f"12 {name}: K1 launches {counted.by_views}, want V = "
+                                     f"{FINETUNE_VIEWS} for each of {len(loader)} requests")
+        if not loaded or not np.isfinite(summary_after["psnr"]):
+            raise AssertionError(f"12 {name}: evaluate {summary_after}, loaded {loaded}")
+        scenes_before, scenes_after = scene_metrics(before.text()), scene_metrics(after.text())
+        for scene in scenes_after:
+            b, a = scenes_before[scene], scenes_after[scene]
+            print(f"[finetune] {name} {scene}: psnr {b['psnr']:.2f} -> {a['psnr']:.2f}, ssim "
+                  f"{b['ssim']:.3f} -> {a['ssim']:.3f} (warm start -> fine-tuned; synthetic "
+                  "scene, no bar)")
+        state, _ = load_network(cfg.trained_model_dir)
+        head = finetune_head_check(cfg, state, batch, device)
+        out[name] = {
+            "cfg": yaml_path, "route": route, "hw": [H, W], "first_epoch": rec["first_epoch"],
+            "first_lr": rec["first_lr"][0], "schedule_count": rec["first_count"],
+            "epochs": rec["epochs"], "views": rec["views"], "losses": rec["losses"],
+            "step_ms": ms, "peak_gib": peak, "launches_val": launches_val.by_views[FINETUNE_VIEWS],
+            "launches_evaluate": launches_eval.by_views[FINETUNE_VIEWS],
+            "before": {"summary": summary_before, "scenes": scenes_before},
+            "after": {"summary": summary_after, "scenes": scenes_after},
+            "head_check": head, "target_to_source": least, "seconds": time.time() - t1}
+    out["seconds"] = time.time() - t0
+    print(f"[finetune] phase 12 took {out['seconds']:.1f} s")
+    return out
+
+
+# Phase 13: tools/measure_frame.py in-process at each eval config's protocol
+# size in float32 (TF32 off) and bf16, and dtu_eval at BASELINE.json's
+# "1080p" stretch size rounded up to a multiple of 32 (the Network's sizes).
+FRAME_ROWS = tuple((name, hw, dt) for name, (_, hw) in EVAL_CONFIGS.items()
+                   for dt in ("float32", "bfloat16")) + (("dtu_eval", (1088, 1920), "bfloat16"),)
+
+
+def phase_frames(device: str = "cuda") -> list:
+    """13. measure_frame on each of FRAME_ROWS: its result rows; fails if K1
+    did not launch in a row."""
+    from gdb_nerf_tpu_torch.tools import measure_frame
+
+    t0 = time.time()
+    rows = []
+    for name, (H, W), dt in FRAME_ROWS:
+        free_cuda()
+        cfg = measure_frame.frame_cfg(os.path.join(REPO, "configs", f"{name}.yaml"), dt,
+                                      ["synthetic_hw", f"[{H},{W}]"])
+        row = measure_frame.measure(cfg, device, name=name)
+        rows.append(row)
+        if row["head_launches"] <= 0 or row["hw"] != [H, W]:
+            raise AssertionError(f"13: measure_frame {name} {H}x{W} {dt}: {row}")
+    print(f"[frames] phase 13 took {time.time() - t0:.1f} s")
+    print(json.dumps({"frames": rows}))
+    return rows
+
+
+def timed_phase(name: str, fn, *args):
+    """``fn(*args)``, then the phase's seconds on a line of their own."""
+    t0 = time.time()
+    out = fn(*args)
+    print(f"[phase] {name} took {time.time() - t0:.1f} s")
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -2015,23 +2468,26 @@ def main() -> None:
     if len(sys.argv) == 3 and sys.argv[1] == "--rank-of":
         return rank_main(sys.argv[2])
 
-    kernel, plane_kernels, gather_kernels, probe_kernels = phase_device_and_build()
+    kernel, plane_kernels, gather_kernels, probe_kernels = timed_phase(
+        "1", phase_device_and_build)
     g, sd = golden_state_dict()
 
     # Each dtype's head as its network holds it (bf16 weights, sigma float32).
     heads = {getattr(torch, dt): build_renderer(dt, sd).network.nerf
              for dt in ("float32", "bfloat16")}
-    k1 = phase_kernel_vs_plain(kernel, heads)
-    convs = phase_plane_conv(plane_kernels)
-    gathers = phase_gather(gather_kernels)
-    probes = phase_plane_ops(probe_kernels)
-    rgb = phase_golden(g, sd)
-    launches = phase_serve(g, sd, rgb)
+    k1 = timed_phase("2", phase_kernel_vs_plain, kernel, heads)
+    convs = timed_phase("2b", phase_plane_conv, plane_kernels)
+    gathers = timed_phase("2c", phase_gather, gather_kernels)
+    probes = timed_phase("2d", phase_plane_ops, probe_kernels)
+    rgb = timed_phase("3", phase_golden, g, sd)
+    launches = timed_phase("4", phase_serve, g, sd, rgb)
+    t0 = time.time()
     trainer, cfg, packed_before, train = phase_train_recipe()
     phase_overfit()
     val_launches = phase_val(trainer, cfg, packed_before)
     evaluate_launches = phase_evaluate(trainer, cfg)
     phase_train_vs_cpu()
+    print(f"[phase] 6 took {time.time() - t0:.1f} s")
     del trainer
     free_cuda()
     parallel = phase_parallel(phase_parallel_single())
@@ -2057,6 +2513,10 @@ def main() -> None:
     print(f"[native] phase 10 took {time.time() - t0:.1f} s")
     free_cuda()
     phase_tools()
+    free_cuda()
+    finetune = phase_finetune()
+    free_cuda()
+    frames = phase_frames()
     kernels = [{
         "name": "bundle_head", "route": "cuda",
         "source": "gdb_nerf_tpu_torch/csrc/bundle_head.cu",
@@ -2067,6 +2527,11 @@ def main() -> None:
         "launches_sharded": parallel["launches_sharded"],
         "launches_gate": gate["launches"],
         "launches_diagnostics": {k: v["launches"] for k, v in diagnostics.items()},
+        "launches_finetune": {name: {"val": finetune[name]["launches_val"],
+                                     "evaluate": finetune[name]["launches_evaluate"]}
+                              for name, *_ in FINETUNE},
+        "launches_frame": {f"{r['config']} {r['hw'][0]}x{r['hw'][1]} {r['dtype']}":
+                           r["head_launches"] for r in frames},
     }, *convs, *gathers, *probes]
     for k in kernels:
         if k["launches"] <= 0:
@@ -2077,6 +2542,7 @@ def main() -> None:
                                **{k: gate[k] for k in ("rows", *bf16_gate.SUMMARY)},
                                "diagnostics": diagnostics, "lpips": lpips}}))
     print(json.dumps({"train_bf16": train16, "native": native}))
+    print(json.dumps({"finetune": finetune}))
     print(json.dumps({"kernels": kernels}))
     if not gate["pass"]:
         raise AssertionError(

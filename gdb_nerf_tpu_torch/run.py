@@ -8,7 +8,8 @@ Same surface as the JAX package's ``run.py``: the YAML config with dotted
 ``key value`` overrides (``synthetic True`` renders procedural scenes when
 no dataset is on disk).  ``dataset`` walks the test loader; ``network``
 prints the mean forward latency; ``evaluate`` prints PSNR and SSIM per
-scene (LPIPS is not ported: it reads SKIPPED) and the FPS.  ``device``
+scene, LPIPS with ``eval_lpips`` (``eval/lpips.py``; it reads SKIPPED only
+when its weights file is missing) and the FPS.  ``device``
 selects the device (default ``cuda``; ``device cpu`` runs the plain
 PyTorch path on the CPU).  Weights come from ``trained_model_dir``: that
 file, or in that directory ``<epoch>.pth`` with ``test.epoch``, else
@@ -114,12 +115,14 @@ def run_evaluate(cfg) -> dict:
 RUNNERS = {"dataset": run_dataset, "network": run_network, "evaluate": run_evaluate}
 
 
-def main() -> None:
-    args = make_parser().parse_args()
+def main(argv=None):
+    """The CLI on ``argv`` (default ``sys.argv[1:]``); returns what the runner
+    returns (``evaluate``: the evaluator's summary)."""
+    args = make_parser().parse_args(argv)
     cfg = make_cfg(args)
     if args.type not in RUNNERS:
         raise SystemExit(f"Unknown --type {args.type!r}; expected one of {sorted(RUNNERS)}")
-    RUNNERS[args.type](cfg)
+    return RUNNERS[args.type](cfg)
 
 
 if __name__ == "__main__":

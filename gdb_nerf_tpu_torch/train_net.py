@@ -96,8 +96,9 @@ def broadcast_state(network: torch.nn.Module, group) -> None:
         torch.distributed.broadcast(t.data, 0, group=group)
 
 
-def main() -> None:
-    args = make_parser().parse_args()
+def main(argv=None) -> None:
+    """The CLI on ``argv`` (default ``sys.argv[1:]``)."""
+    args = make_parser().parse_args(argv)
     cfg = make_cfg(args)
     if cfg.fix_random:
         random.seed(0)

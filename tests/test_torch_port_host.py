@@ -2,7 +2,8 @@
 
 ``gdb_nerf_tpu_torch.config`` and ``gdb_nerf_tpu_torch.datasets`` are copies
 of the JAX package's modules of the same names; these tests hold them equal:
-``load_cfg`` on every eval config, the synthetic loader's batches bit for
+``load_cfg`` on every config (the eval configs, ``dtu_pretrain`` and the
+21 per-scene fine-tune configs), the synthetic loader's batches bit for
 bit, and the DTU, LLFF and NeRF readers' items on miniature on-disk trees of
 the kind ``tests/test_reader_fixtures.py`` builds.  Both packages' readers
 run with their native decoders switched off, so both sides decode with cv2
@@ -57,7 +58,13 @@ def assert_same(a, b, path="item"):
         assert a == b, path
 
 
-@pytest.mark.parametrize("name", ["dtu_eval", "llff_eval", "nerf_eval"])
+# The eval configs, their parent, and every per-scene fine-tune config.
+CONFIG_NAMES = ["dtu_eval", "llff_eval", "nerf_eval", "dtu_pretrain"] + sorted(
+    f"{family}/{f[:-5]}" for family in ("dtu", "llff", "nerf")
+    for f in os.listdir(os.path.join(REPO, "configs", family)) if f.endswith(".yaml"))
+
+
+@pytest.mark.parametrize("name", CONFIG_NAMES)
 def test_load_cfg_equals_the_jax_package(name):
     path = os.path.join(REPO, "configs", f"{name}.yaml")
     opts = ["synthetic", "True", "test.eval_depth", "True"]

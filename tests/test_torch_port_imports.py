@@ -7,7 +7,8 @@
   model (``tools/bf16_gate``, ``tools/measure_fill``, ``tools/measure_lod``,
   ``tools/measure_train_step``, ``tools/profile_forward``,
   ``tools/profile_encode``, ``tools/microbench``, ``tools/roofline``,
-  ``tools/verify_scene``, ``tools/microbench_loader``) among them, and the port's CLI loader and
+  ``tools/verify_scene``, ``tools/microbench_loader``, ``tools/measure_frame``) among them,
+  and the port's CLI loader and
   one train step run on the CPU, without pulling jax, flax or the JAX
   package (``gdb_nerf_tpu``) into ``sys.modules``; no source of the port
   names either in an import, or a path into the JAX package's ``native``
@@ -114,10 +115,10 @@ def test_port_imports_no_jax(fresh_interpreter):
         "tools.bf16_gate", "tools.measure_common", "tools.measure_fill", "tools.measure_lod",
         "train.mixed", "tools.measure_train_step", "datasets.native", "tools.profile_forward",
         "tools.profile_encode", "tools.microbench", "tools.roofline", "tools.verify_scene",
-        "tools.microbench_loader")}
+        "tools.microbench_loader", "tools.measure_frame")}
     assert want <= set(report["modules"]), want - set(report["modules"])
     assert not report["bad"], report["bad"]
-    assert len(report["modules"]) >= 80  # every module of the port was imported
+    assert len(report["modules"]) >= 81  # every module of the port was imported
 
 
 def _imported_names(path: str) -> list[str]:

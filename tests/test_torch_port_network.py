@@ -17,7 +17,8 @@ Both run the plain PyTorch path on the CPU in float32.
 
 (b)'s two JAX references trace and compile in threads of their own, and the
 CLI test's interpreter runs beside them (``started_early``, set up by the
-first test that needs them).
+bf16 test, which runs beside them at 2 torch threads: at 8 it and the
+compiles slow each other).
 """
 
 import dataclasses
@@ -240,6 +241,15 @@ def other_eval_flags_case():
 PARITY_CASES = {"small": small_config_case, "other_flags": other_eval_flags_case}
 
 
+@pytest.fixture
+def beside_the_compiles():
+    """Torch at 2 intra-op threads while the JAX references compile."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(min(2, before))
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def started_early():
     """Each parity case's (batch, flags, future JAX reference), the references
@@ -258,22 +268,7 @@ def started_early():
 
 
 @torch.no_grad()
-def test_port_matches_jax_network_small_config(started_early):
-    batch, kw, ref = started_early["small"]
-    assert_port_matches_jax_network(batch, *ref.result(), **kw)
-
-
-@torch.no_grad()
-def test_port_matches_jax_network_at_the_other_eval_flags(started_early):
-    """Reweighting, S = 6, V = 4, B = 2 and slabs of 256 bundles, in one case
-    (``spb`` concatenated over the slabs)."""
-    batch, kw, ref = started_early["other_flags"]
-    assert Network(nerf_chunk_size=256).num_chunks(32, 48) == 8
-    assert_port_matches_jax_network(batch, *ref.result(), **kw)
-
-
-@torch.no_grad()
-def test_bf16_network_casts_its_feature_path_once(rng):
+def test_bf16_network_casts_its_feature_path_once(rng, started_early, beside_the_compiles):
     """compute_dtype bf16: the feature path's conv and linear weights are
     bf16 from the start (no cast per call); BatchNorm, the density layers
     (the bundle head's and each stage NeRF's) and the decoder's output conv
@@ -302,6 +297,22 @@ def test_bf16_network_casts_its_feature_path_once(rng):
     agree = psnr(ret16["rgb"].numpy(), ret32["rgb"].numpy())
     assert agree >= 45.0, f"bf16 vs float32 rgb {agree:.1f} dB"
     assert net16.nerf.kernel.launches == 0
+
+
+
+@torch.no_grad()
+def test_port_matches_jax_network_small_config(started_early):
+    batch, kw, ref = started_early["small"]
+    assert_port_matches_jax_network(batch, *ref.result(), **kw)
+
+
+@torch.no_grad()
+def test_port_matches_jax_network_at_the_other_eval_flags(started_early):
+    """Reweighting, S = 6, V = 4, B = 2 and slabs of 256 bundles, in one case
+    (``spb`` concatenated over the slabs)."""
+    batch, kw, ref = started_early["other_flags"]
+    assert Network(nerf_chunk_size=256).num_chunks(32, 48) == 8
+    assert_port_matches_jax_network(batch, *ref.result(), **kw)
 
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -17,6 +17,9 @@
     zero-weight share it prints equals a count made here from the LOD.
 (e) ``tools/microbench.py --quick`` and ``tools/microbench_loader.py --n 2``:
     every row printed, the JSON keys present.
+(f) ``tools/measure_frame.py --device cpu --n 2`` at 64x64: its numbers and
+    JSON line; every device tool stops without a GPU unless given
+    ``--device cpu``.
 """
 
 import contextlib
@@ -32,8 +35,9 @@ import torch
 
 from gdb_nerf_tpu_torch.ops import bundles
 from gdb_nerf_tpu_torch.runtime.renderer import to_device
-from gdb_nerf_tpu_torch.tools import (measure_common, microbench, microbench_loader,
-                                      profile_encode, profile_forward, roofline, verify_scene)
+from gdb_nerf_tpu_torch.tools import (measure_common, measure_frame, microbench,
+                                      microbench_loader, profile_encode, profile_forward,
+                                      roofline, verify_scene)
 from tests.test_torch_port_network import XLA_O0
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -236,7 +240,36 @@ def test_microbench_and_loader_print_every_row():
     assert result["frame_ms"] == 33.0 and "against a 33.00 ms frame" in out
 
 
-@pytest.mark.parametrize("tool", [profile_forward, profile_encode, microbench, verify_scene])
+def test_measure_frame_times_frames_on_cpu(monkeypatch):
+    """``measure_frame --device cpu --n 2 --set synthetic_hw [64,64]``: the
+    dtu_eval forward in bf16 (the tool's default) on the synthetic loader's
+    first request, its ms a frame the best of its rounds, the host's
+    enqueue beside a request's latency, the frame's H x W, V and S, the
+    head's launches (0: the plain head on the CPU) over every forward it
+    ran, and its JSON line; with ``--device cuda`` and no GPU it stops."""
+    out = run_main(measure_frame.main, ["--device", "cpu", "--n", "2", "--set", "synthetic_hw",
+                                        "[64,64]"])
+    result = json_line(out, "measure_frame")
+    assert set(result) == {"config", "dtype", "hw", "views", "samples", "n", "rounds",
+                           "ms_per_frame", "fps", "rounds_ms", "latency_ms", "enqueue_ms",
+                           "peak_gib", "head_launches", "frames", "head_launches_per_frame",
+                           "device", "card"}
+    assert (result["config"], result["dtype"], result["hw"], result["views"], result["samples"],
+            result["n"], result["card"]) == ("dtu_eval", "bfloat16", [64, 64], 3, 3, 2, "cpu")
+    assert result["ms_per_frame"] == min(result["rounds_ms"]) > 0
+    assert len(result["rounds_ms"]) == measure_frame.ROUNDS
+    assert result["fps"] == pytest.approx(1e3 / result["ms_per_frame"])
+    assert result["latency_ms"] > 0 and result["enqueue_ms"] > 0 and result["peak_gib"] is None
+    # one warm-up, each round's n + 1 (timed_ms's own warm-up on the CPU), n requests
+    assert result["frames"] == 1 + measure_frame.ROUNDS * 3 + 2
+    assert result["head_launches"] == 0 and "ms/frame" in out
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="--device cpu"):
+        measure_frame.main(["--device", "cuda", "--n", "2"])
+
+
+@pytest.mark.parametrize("tool", [profile_forward, profile_encode, microbench, verify_scene,
+                                  measure_frame])
 def test_device_tools_default_to_the_card(monkeypatch, tool):
     """Without a GPU, the tools that use a device stop unless given --device cpu."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -14,7 +14,9 @@
   checkpoint holds float32 and loads into both eval dtypes, and under a config with another LR
   takes the new schedule from its first step, ``load_model`` picks the file the JAX
   loader picks, retention stops at 100 files, ``load_pretrain`` reads
-  another experiment's ``latest.pth``.
+  another experiment's ``latest.pth``; the per-scene fine-tune
+  (``configs/dtu/scan114.yaml``) warm-starts through ``train_net`` by both
+  routes at the JAX ``train_net.py``'s epoch and LR.
 * ``train_net``, ``run --type evaluate`` and ``tools/measure_train_step``
   end to end on the CPU.
 """
@@ -616,6 +618,78 @@ def test_retention_and_pretrain(tmp_path, capsys):
     assert checkpoint.load_pretrain(cfg) is None and "no checkpoint" in capsys.readouterr().out
     cfg.train.pretrain = ""
     assert checkpoint.load_pretrain(cfg) is None
+
+
+# Route (ii), the reference's per-scene fine-tune: the fine-tune's own
+# directory holds the pretrained training state as <epoch>.pth, which
+# ``load_model`` resumes; route (i): ``train.pretrain`` names another
+# experiment's latest.pth, which ``load_pretrain`` loads into the network
+# alone.  The warm-start file stands for a training at epoch 2 after 360
+# steps (the bf16 gate's recipe: 3 epochs of 120).
+WARM_EPOCH, WARM_STEP = 2, 360
+
+
+@pytest.mark.parametrize("route", ["pretrain", "resume"])
+def test_finetune_warm_starts_as_the_jax_train_net(route, rng, tmp_path, few_threads):
+    """``configs/dtu/scan114.yaml`` through the port's ``train_net.main`` at
+    64x64, ``mvs.num_depth [16,8]``, ``ep_iter 1``, one epoch, from a
+    warm-start file whose weights and BatchNorm statistics differ from the
+    seeded init: before the first step the network equals the file, and the
+    step runs at the epoch and LR that the JAX ``train_net.py`` gives
+    (lines 71-99: ``load_model``, the epoch after the file's, the step
+    count restored from it and the config's schedule read there, as
+    optax reads it; lines 100-115: ``load_pretrain``, the network alone,
+    epoch 0 and a fresh optimizer); the epoch's checkpoint is written."""
+    from gdb_nerf_tpu_torch import train_net
+    from gdb_nerf_tpu_torch.config import load_cfg
+    from gdb_nerf_tpu_torch.runtime.registry import make_network
+    from gdb_nerf_tpu_torch.train.trainer import Trainer
+
+    path = os.path.join(REPO, "configs", "dtu", "scan114.yaml")
+    cfg = load_cfg(path, ["workspace", str(tmp_path)])
+    torch.manual_seed(1)
+    warm = Trainer(cfg, make_network(cfg, torch.float32), "cpu").state_dict()
+    for k, v in warm["net"].items():
+        if k.endswith(("running_mean", "running_var")):
+            v.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, v.shape).astype(np.float32)))
+    warm.update(epoch=WARM_EPOCH, step=WARM_STEP)
+    warm["scheduler"]["last_epoch"] = WARM_STEP
+    if route == "resume":
+        begin, count = WARM_EPOCH + 1, WARM_STEP
+        dest = os.path.join(cfg.trained_model_dir, f"{WARM_EPOCH}.pth")
+    else:
+        begin, count = 0, 0
+        dest = os.path.join(str(tmp_path), "trained_model", cfg.task, cfg.train.pretrain,
+                            "latest.pth")
+    os.makedirs(os.path.dirname(dest))
+    torch.save(warm, dest)
+    seen = []
+
+    class Observed(Trainer):  # the first epoch's view of the trainer, then the epoch as it is
+        def train_epoch(self, epoch, loader, recorder):
+            seen.append((epoch, [g["lr"] for g in self.optimizer.param_groups],
+                         self.scheduler.last_epoch,
+                         {k: v.clone() for k, v in self.network.state_dict().items()}))
+            return super().train_epoch(epoch, loader, recorder)
+
+    opts = ["synthetic", "True", "synthetic_hw", "[64,64]", "mvs.num_depth", "[16,8]",
+            "workspace", str(tmp_path), "ep_iter", "1", "train.epoch", str(begin + 1),
+            "train.num_workers", "0", "skip_eval", "True", "device", "cpu"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(train_net, "Trainer", Observed)
+        train_net.main(["--cfg_file", path, *opts])
+    cfg = load_cfg(path, opts)
+    ((epoch, lrs, got_count, state),) = seen
+    assert (epoch, got_count) == (begin, count)
+    want = float(jax_optim.make_lr_schedule(cfg)(jnp.asarray(count)))
+    assert lrs == [optim.make_lr_schedule(cfg)(count)] and lrs[0] == pytest.approx(want, rel=1e-6)
+    assert lrs[0] == (cfg.train.lr if route == "pretrain" else cfg.train.lr * 0.5 ** (count / 50))
+    assert state.keys() == warm["net"].keys()
+    for k, v in warm["net"].items():
+        assert torch.equal(state[k], v), k
+    saved = checkpoint.load_model(cfg.trained_model_dir)[0]
+    assert (saved["epoch"], saved["step"]) == (begin, count + 1)
+    assert os.path.exists(os.path.join(cfg.trained_model_dir, f"{begin}.pth"))
 
 
 def train_clis(workspace: str):
