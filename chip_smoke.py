@@ -56,11 +56,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   3. the golden fixture (tests/golden/dtu_eval_golden.npz) rendered through
      the port in float32 with TF32 off: > 40 dB against the frozen render,
      the MVS depth check of tests/test_golden_protocol.py, and the kernel
-     launched;
+     launched (counted on a second, untimed render under
+     ``tracing.recording()``, so that the timed one runs untraced);
   4. serving: 5 requests in float32 and 5 in bf16 at 512x640 (the synthetic
      loader's scenes, made here) through the Renderer, with finite outputs,
-     one kernel launch per request and slab, the mean latency (first request
-     excluded), each request's host enqueue time, the peak device memory,
+     the mean latency (first request excluded), each request's host enqueue
+     time and the peak device memory with tracing off, one kernel launch per
+     request and slab on a second, untimed pass,
      and a check that the forward makes no synchronizing call;
   6. training (configs/dtu_pretrain.yaml, float32): (a) 11 steps of the
      port's Trainer at 512x640, B = 4, on the
@@ -68,7 +70,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      the peak device memory and the card's name and power limit, then one
      step at V = 4; (b) 20 steps on one 128x160 batch, the last loss below
      the first; (c) Trainer.val after (a) through the bundle-head kernel,
-     its launch count set to 0 before and read after, the kernel's pack
+     its launches counted under ``tracing.recording()``, the kernel's pack
      refreshed after the optimizer steps and held to the plain head on the
      trained weights; (d) the evaluate path of ``run --type evaluate`` on 2
      requests from a checkpoint of (a), its launch count read the same way;
@@ -85,7 +87,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      the same way (and (a) over nccl, one rank a card, where there are two
      cards); (c) on the same two ranks, ShardedRenderer on the golden batch
      in float32 and bf16, each rank's rows through the bundle-head kernel
-     (its launches counted on each rank), held to the unsharded render,
+     (its launches counted on each rank, on an untimed third render), held
+     to the unsharded render,
      with debug_outputs on: the gathered per-bundle sample counts (spb)
      equal to the unsharded ones; (d) on the same two ranks, (a)'s step in
      bf16 on float32 master weights (train/mixed.py) from the same weights
@@ -131,8 +134,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      512x640 V = 3 from seeded weights: (a) tools/profile_forward.py in
      float32 (TF32 off) and bf16, each stage's CUDA-event time, host enqueue
      time and time with the stream held, the stages' sum beside the whole
-     forward, the bundle-head kernel's launches set to 0 before and read
-     after (> 0 in each dtype), and the stage chain held to the Renderer's
+     forward, the bundle-head kernel's launches in the stages' first calls
+     (> 0 in each dtype), and the stage chain held to the Renderer's
      forward; (b) tools/profile_encode.py in bf16, its pieces held to
      encode_samples' fields; (c) tools/microbench.py in full; (d)
      tools/roofline.py on (c)'s envelope, its floors beside (a)'s times;
@@ -764,20 +767,25 @@ def build_renderer(compute_dtype: str, sd, debug_outputs: bool = False):
 
 def phase_golden(g, sd):
     """Golden render in float32 through the port.  Returns the f32 rgb."""
+    from gdb_nerf_tpu_torch.kernels.bundle_head import LAUNCHES
+    from gdb_nerf_tpu_torch.runtime import tracing
+
     renderer = build_renderer("float32", sd)
-    kernel = renderer.network.nerf.kernel
-    before = kernel.launches
-    (ret, _), ms, _ = renderer.render_timed(golden_batch(g, "cuda"))
+    batch = golden_batch(g, "cuda")
+    (ret, _), ms, _ = renderer.render_timed(batch)
+    with tracing.recording() as rec:  # an untimed render: the timed one runs untraced
+        renderer.render(batch)
+    launches = rec.counter(LAUNCHES)
     rgb = ret["rgb"].cpu().numpy()
     agree = psnr(np.clip(rgb, 0, 1), np.clip(g["golden/rgb"], 0, 1))
     mvs_err = np.abs(ret["mvs_depth"].cpu().numpy() - g["golden/mvs_depth"]).max()
     print(f"[golden] rgb {agree:.2f} dB vs the frozen render; max |d mvs_depth| "
-          f"{mvs_err:.3e}; kernel launches {kernel.launches - before}; {ms:.1f} ms")
+          f"{mvs_err:.3e}; kernel launches {launches}; {ms:.1f} ms")
     if not agree > 40.0:
         raise AssertionError(f"golden render agreement {agree:.2f} dB <= 40 dB")
     np.testing.assert_allclose(ret["mvs_depth"].cpu().numpy(), g["golden/mvs_depth"],
                                rtol=1e-2, atol=1e-2)
-    if kernel.launches <= before:
+    if launches <= 0:
         raise AssertionError("the golden render did not launch the bundle-head kernel")
     return rgb
 
@@ -786,18 +794,22 @@ def phase_serve(g, sd, rgb_f32_golden):
     """5 requests per dtype at 512x640.  Returns the main path's launch count."""
     import torch
 
+    from gdb_nerf_tpu_torch.kernels.bundle_head import LAUNCHES
+    from gdb_nerf_tpu_torch.runtime import tracing
     from gdb_nerf_tpu_torch.runtime.renderer import to_device
 
     batches = synthetic_requests(REQUESTS)
     renderers = {dt: build_renderer(dt, sd) for dt in ("float32", "bfloat16")}
     dev_batches = [to_device(b, "cuda") for b in batches]  # outside the timed region
     torch.cuda.synchronize()
-    for r in renderers.values():
-        r.network.nerf.kernel.launches = 0
+    total = 0
     for dt, r in renderers.items():
         torch.cuda.reset_peak_memory_stats()
         mean_ms, times, enqueues, outs = r.mean_latency_ms(dev_batches)
         peak = torch.cuda.max_memory_allocated() / 2**30
+        with tracing.recording() as rec:  # an untimed pass: the timed one runs untraced
+            for b in dev_batches:
+                r.render(b)
         H, W = batches[0]["src_views"]["rgb"].shape[2:4]
         for ret, _ in outs:
             for k, v in ret.items():
@@ -806,15 +818,16 @@ def phase_serve(g, sd, rgb_f32_golden):
             if tuple(ret["rgb"].shape) != (1, H, W, 3):
                 raise AssertionError(f"{dt}: rgb shape {tuple(ret['rgb'].shape)}")
         slabs = r.network.num_chunks(H // 2, W // 2)
-        launches = r.network.nerf.kernel.launches
+        launches = rec.counter(LAUNCHES)
+        total += launches
         print(f"[serve] {dt} {H}x{W} x{len(outs)}: mean forward {mean_ms:.2f} ms "
               f"(first excluded; each: {', '.join(f'{t:.2f}' for t in times)} ms; "
               f"host enqueue of each: {', '.join(f'{t:.2f}' for t in enqueues)} ms), "
-              f"peak memory {peak:.2f} GiB, kernel launches {launches}")
-        if launches != len(outs) * slabs:
-            raise AssertionError(f"{dt}: {launches} kernel launches for {len(outs)} requests "
+              f"peak memory {peak:.2f} GiB, kernel launches {launches} (an untimed pass)")
+        if launches != len(dev_batches) * slabs:
+            raise AssertionError(f"{dt}: {launches} kernel launches for {len(dev_batches)} requests "
                                  f"x {slabs} slabs")
-    launches = sum(r.network.nerf.kernel.launches for r in renderers.values())
+    launches = total
     # The enqueue times above mean host time only if the forward never waits
     # for the device: PyTorch raises here on any synchronizing call it makes.
     torch.cuda.set_sync_debug_mode("error")
@@ -982,22 +995,23 @@ def phase_train_vs_cpu():
 
 def phase_val(trainer, cfg, packed_before):
     """6c. Trainer.val after 6a, through the bundle-head kernel, with its
-    launch count set to 0 before and read after; the head's pack refreshed
+    launches counted under ``tracing.recording()``; the head's pack refreshed
     after the optimizer steps, and the kernel on the trained weights held to
     the plain head at the first val request's inputs.  Returns the launches."""
     import torch
 
     from gdb_nerf_tpu_torch.datasets import make_data_loader
-    from gdb_nerf_tpu_torch.kernels.bundle_head import pack_weights
+    from gdb_nerf_tpu_torch.kernels.bundle_head import LAUNCHES, pack_weights
+    from gdb_nerf_tpu_torch.runtime import tracing
     from gdb_nerf_tpu_torch.runtime.registry import make_evaluator
 
     head = trainer.network.nerf
     inputs = []
     hook = head.register_forward_pre_hook(lambda m, args: inputs.append(args[:3]) or None)
     loader = make_data_loader(cfg, is_train=False)
-    head.kernel.launches = 0
-    result = trainer.val(0, loader, make_evaluator(cfg))
-    launches = head.kernel.launches
+    with tracing.recording() as rec:
+        result = trainer.val(0, loader, make_evaluator(cfg))
+    launches = rec.counter(LAUNCHES)
     hook.remove()
     print(f"[val] {len(loader)} requests at 512x640 after training: psnr {result['psnr']:.3f}, "
           f"ssim {result['ssim']:.4f}; bundle-head kernel launches {launches}")
@@ -1024,6 +1038,8 @@ def phase_evaluate(trainer, cfg):
     from gdb_nerf_tpu_torch import run
     from gdb_nerf_tpu_torch.datasets import samplers, synthetic
     from gdb_nerf_tpu_torch.datasets.loader import DataLoader
+    from gdb_nerf_tpu_torch.kernels.bundle_head import LAUNCHES
+    from gdb_nerf_tpu_torch.runtime import tracing
     from gdb_nerf_tpu_torch.utils.checkpoint import save_model
 
     save_model(trainer.state_dict(), cfg.trained_model_dir, 0, last=True)
@@ -1031,10 +1047,9 @@ def phase_evaluate(trainer, cfg):
     requests = DataLoader(synthetic.Dataset(cfg, split="test", num_items=2),
                           samplers.EnerfBatchSampler(samplers.SequentialSampler(2), 1, False,
                                                      cfg.test.sampler_meta), num_workers=0)
-    kernel = renderer.network.nerf.kernel
-    kernel.launches = 0
-    result = run.evaluate(cfg, renderer, requests)
-    launches = kernel.launches
+    with tracing.recording() as rec:
+        result = run.evaluate(cfg, renderer, requests)
+    launches = rec.counter(LAUNCHES)
     print(f"[evaluate] 2 requests: {result}; bundle-head kernel launches {launches}")
     if launches != 2 or not np.isfinite(result["psnr"]):
         raise AssertionError(f"evaluate: {launches} launches, {result}")
@@ -1148,9 +1163,11 @@ def rank_main(out_dir: str) -> None:
     import torch
     import torch.distributed as dist
 
+    from gdb_nerf_tpu_torch.kernels.bundle_head import LAUNCHES
     from gdb_nerf_tpu_torch.models.network import Network
     from gdb_nerf_tpu_torch.parallel import ShardedRenderer, hosts
     from gdb_nerf_tpu_torch.parallel.collectives import all_reduce_mean_
+    from gdb_nerf_tpu_torch.runtime import tracing
 
     device = hosts.maybe_initialize_distributed("cuda")
     group, rank = hosts.default_group(), hosts.rank()
@@ -1196,11 +1213,12 @@ def rank_main(out_dir: str) -> None:
         network.load_state_dict(sd, strict=True)
         renderer = ShardedRenderer(network, device, group)
         batch = golden_batch(g, device)
-        network.nerf.kernel.launches = 0
         (ret, _), first_ms, _ = renderer.render_timed(batch)
         _, ms, _ = renderer.render_timed(batch)
+        with tracing.recording() as rec:  # an untimed render: the timed ones run untraced
+            renderer.render(batch)
         out["render"][dt] = {"ret": {k: v.cpu() for k, v in ret.items()}, "ms": ms,
-                             "first_ms": first_ms, "launches": network.nerf.kernel.launches}
+                             "first_ms": first_ms, "launches": rec.counter(LAUNCHES)}
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     hosts.shutdown()
 
@@ -1394,7 +1412,7 @@ def phase_parallel(single: dict) -> dict:
                   f"unsharded {want_ms:.2f} ms; against the unsharded render {shown}; spb "
                   f"{'equal' if spb_equal else 'DIFFERS'} (mean {float(spb.float().mean()):.4f} "
                   f"of {DTU_EVAL['nerf']['max_num_samples']}); bundle-head kernel launches "
-                  f"{got['launches']} (2 renders)")
+                  f"{got['launches']} (one untimed render)")
             if not ok:
                 raise AssertionError(f"7c {dt}: rank {rank}'s render disagrees: {shown}")
         launches.append([r["render"][dt]["launches"] for r in ranks])
@@ -1544,6 +1562,8 @@ def phase_diagnostics(state: dict) -> dict:
     config at its protocol size in float32 over DIAG_SCENES scenes, through
     the bundle-head kernel; spb in [1, S] (measure_fill raises otherwise),
     one count a bundle, one lod a sample and view, each in the histogram."""
+    from gdb_nerf_tpu_torch.kernels.bundle_head import LAUNCHES
+    from gdb_nerf_tpu_torch.runtime import tracing
     from gdb_nerf_tpu_torch.tools import measure_common, measure_fill, measure_lod
 
     out = {}
@@ -1551,24 +1571,24 @@ def phase_diagnostics(state: dict) -> dict:
         cfg = eval_cfg(name)
         batches = measure_common.first_batches(cfg, DIAG_SCENES)
         renderer = measure_common.renderer_for(cfg, "cuda", state, debug_outputs=True)
-        kernel = renderer.network.nerf.kernel
-        kernel.launches = 0
         t0 = time.time()
-        counts = measure_fill.spb_counts(renderer, batches)
-        fill = measure_fill.fill_stats(name, counts, f"{DIAG_SCENES} synthetic scenes, the "
-                                       "weights of phase 8a")
-        lod = measure_lod.measure(renderer, batches)
+        with tracing.recording() as rec:
+            counts = measure_fill.spb_counts(renderer, batches)
+            fill = measure_fill.fill_stats(name, counts, f"{DIAG_SCENES} synthetic scenes, "
+                                           "the weights of phase 8a")
+            lod = measure_lod.measure(renderer, batches)
+        launches = rec.counter(LAUNCHES)
         S, V = cfg.nerf.max_num_samples, GATE_VIEWS
         bundles = DIAG_SCENES * (H // 2) * (W // 2)
         print(f"[diagnostics] {json.dumps({**fill, 'hw': [H, W]})}")
         print(f"[diagnostics] {json.dumps({'config': name, **lod, 'hw': [H, W]})}")
         print(f"[diagnostics] {name}: {time.time() - t0:.1f} s, bundle-head kernel launches "
-              f"{kernel.launches}")
+              f"{launches}")
         if (int(counts.sum()) != bundles or lod["n"] != bundles * V * S
-                or sum(lod["hist_halves"].values()) != lod["n"] or kernel.launches < DIAG_SCENES):
+                or sum(lod["hist_halves"].values()) != lod["n"] or launches < DIAG_SCENES):
             raise AssertionError(f"8c {name}: {int(counts.sum())} spb counts for {bundles} "
-                                 f"bundles, {lod['n']} lods, {kernel.launches} launches")
-        out[name] = {"fill": fill, "lod": lod, "launches": kernel.launches}
+                                 f"bundles, {lod['n']} lods, {launches} launches")
+        out[name] = {"fill": fill, "lod": lod, "launches": launches}
         del renderer
         free_cuda()
     return out
@@ -1775,23 +1795,25 @@ def phase_train_bf16_vs_cpu() -> dict:
 
 def phase_val_bf16(trainer, cfg) -> dict:
     """9d. Trainer.val of the bf16 training through the bf16 head kernel
-    (its launches counted on the step's bf16 compute copy that val renders
-    through, set to 0 before), then save_model
+    (its launches counted while val renders through the step's bf16
+    compute copy), then save_model
     and load_network into float32 and bf16 Renderers (run.build_renderer):
     the checkpoint's tensors float32, one request rendered in each."""
     import torch
 
     from gdb_nerf_tpu_torch import run
     from gdb_nerf_tpu_torch.datasets import make_data_loader
+    from gdb_nerf_tpu_torch.kernels.bundle_head import LAUNCHES
+    from gdb_nerf_tpu_torch.runtime import tracing
     from gdb_nerf_tpu_torch.runtime.registry import make_evaluator
     from gdb_nerf_tpu_torch.runtime.renderer import to_device
     from gdb_nerf_tpu_torch.utils.checkpoint import load_network, save_model
 
     loader = make_data_loader(cfg, is_train=False)
     net = trainer.mixed.compute  # val renders through the step's bf16 copy
-    net.nerf.kernel.launches = 0
-    result = trainer.val(0, loader, make_evaluator(cfg))
-    launches = net.nerf.kernel.launches
+    with tracing.recording() as rec:
+        result = trainer.val(0, loader, make_evaluator(cfg))
+    launches = rec.counter(LAUNCHES)
     print(f"[val-bf16] {len(loader)} requests at 512x640 after 9a: psnr {result['psnr']:.3f}, "
           f"ssim {result['ssim']:.4f}; rendered through a {net.compute_dtype} eval network "
           f"(head weights {net.nerf.lr0[0].weight.dtype}); bundle-head kernel launches {launches}")
@@ -1812,13 +1834,12 @@ def phase_val_bf16(trainer, cfg) -> dict:
         held = renderer.network.state_dict()
         if not all(torch.equal(held[k], v.to(held[k].dtype).cuda()) for k, v in saved.items()):
             raise AssertionError(f"9d: the {dt} renderer does not hold the checkpoint")
-        kernel = renderer.network.nerf.kernel
-        kernel.launches = 0
-        ret, _ = renderer.render(batch)
+        with tracing.recording() as rec:
+            ret, _ = renderer.render(batch)
         rgb[dt] = ret["rgb"].float().cpu().numpy()
-        out[f"launches_{dt}"] = kernel.launches
-        if kernel.launches < 1 or not np.isfinite(rgb[dt]).all():
-            raise AssertionError(f"9d: the {dt} renderer of the checkpoint: {kernel.launches} "
+        out[f"launches_{dt}"] = rec.counter(LAUNCHES)
+        if out[f"launches_{dt}"] < 1 or not np.isfinite(rgb[dt]).all():
+            raise AssertionError(f"9d: the {dt} renderer of the checkpoint: {out[f'launches_{dt}']} "
                                  f"launches, finite: {np.isfinite(rgb[dt]).all()}")
     out["bf16_vs_f32_db"] = psnr(rgb["bfloat16"], rgb["float32"])
     print(f"[val-bf16] the checkpoint in float32 and bf16 Renderers: one request each, bf16 vs "
@@ -2009,8 +2030,8 @@ def max_abs_diff(got, want) -> float:
 
 def phase_tools(device: str = "cuda") -> dict:
     """11. (a) tools/profile_forward.py in float32 (TF32 off) and bf16, the
-    bundle-head kernel's launches set to 0 before and read after (> 0 in
-    each dtype), and its stage chain against the Renderer's forward; (b)
+    bundle-head kernel's launches in its stages' first calls (> 0 in each
+    dtype), and its stage chain against the Renderer's forward; (b)
     tools/profile_encode.py in bf16, its pieces against encode_samples' fields;
     (c) tools/microbench.py in full; (d) tools/roofline.py on (c)'s envelope,
     its floors per stage beside (a)'s times; (e) tools/verify_scene.py on
@@ -2027,23 +2048,20 @@ def phase_tools(device: str = "cuda") -> dict:
     for dt in ("float32", "bfloat16"):
         free_cuda()
         renderer, batch = tools_renderer(dt, device)
-        kernel = renderer.network.nerf.kernel
-        kernel.launches = 0
         print(f"[tools] profile_forward dtu_eval {TOOLS_HW[0]}x{TOOLS_HW[1]} V=3 {dt} on {smi}")
         prof = profile_forward.profile(renderer, batch, TOOLS_ITERS)
-        launches = kernel.launches
         with torch.inference_mode():
             chained = profile_forward.run_stages(renderer.network, batch, lambda name, fn: fn())
         ret, _ = renderer.render(batch)
         keys = sorted(ret)
         diff = max_abs_diff([chained[k] for k in keys], [ret[k] for k in keys])
-        print(f"[tools] {dt}: bundle-head kernel launches in the profile {launches} (its stages "
-              f"{prof['head_launches']}); the stage chain against the forward: max |d| {diff:.3e}")
-        if launches <= 0 or prof["head_launches"] <= 0:
+        print(f"[tools] {dt}: bundle-head kernel launches in the stages' first calls "
+              f"{prof['head_launches']}; the stage chain against the forward: max |d| {diff:.3e}")
+        if prof["head_launches"] <= 0:
             raise AssertionError(f"11a {dt}: the head stage did not launch the bundle-head kernel")
         if sorted(chained) != keys or not diff <= TOOLS_CHAIN_ATOL:
             raise AssertionError(f"11a {dt}: the stage chain differs from the forward: {diff}")
-        out["profile_forward"][dt] = {**prof, "launches": launches, "chain_max_abs_diff": diff}
+        out["profile_forward"][dt] = {**prof, "chain_max_abs_diff": diff}
         del renderer
     free_cuda()
     renderer, batch = tools_renderer("bfloat16", device)
@@ -2122,9 +2140,11 @@ def finetune_workspace() -> str:
 
 
 class HeadLaunches:
-    """While active, counts the bundle-head kernel's launches by the call's
-    view count: each call's count read before and after it, by forward hooks
-    on ``head`` or, without one, on every BundleNeRF the process calls."""
+    """While active (a ``tracing.recording()``), counts the bundle-head
+    kernel's launches by the call's view count: the counter read before and
+    after each call, by forward hooks on ``head`` or, without one, on every
+    BundleNeRF the process calls.  Each time it is entered adds to the same
+    counts."""
 
     def __init__(self, head=None):
         self.head, self.by_views = head, {}
@@ -2132,19 +2152,24 @@ class HeadLaunches:
     def __enter__(self):
         from torch.nn.modules import module
 
+        from gdb_nerf_tpu_torch.kernels.bundle_head import LAUNCHES
         from gdb_nerf_tpu_torch.models.nerf_head import BundleNeRF
+        from gdb_nerf_tpu_torch.runtime import tracing
 
+        self._recording = tracing.recording()
+        rec = self._recording.__enter__()
         before = {}
 
         def pre(m, args):
             if isinstance(m, BundleNeRF):
-                before[id(m)] = (m.kernel.launches, int(args[1].shape[0]))
+                before[id(m)] = (rec.counter(LAUNCHES), int(args[1].shape[0]))
 
         def post(m, args, out):
             if isinstance(m, BundleNeRF) and id(m) in before:
                 n0, views = before.pop(id(m))
-                if m.kernel.launches > n0:
-                    self.by_views[views] = self.by_views.get(views, 0) + m.kernel.launches - n0
+                n = rec.counter(LAUNCHES) - n0
+                if n > 0:
+                    self.by_views[views] = self.by_views.get(views, 0) + n
 
         if self.head is None:
             self._hooks = [module.register_module_forward_pre_hook(pre),
@@ -2157,6 +2182,7 @@ class HeadLaunches:
     def __exit__(self, *exc):
         for h in self._hooks:
             h.remove()
+        self._recording.__exit__(*exc)
 
 
 class observed_trainers:
@@ -2165,13 +2191,15 @@ class observed_trainers:
     copy of the network's state at its first ``train_epoch`` call, then each
     epoch, each step's loss and view count, and the bundle-head kernel's
     launches by view count of the network its ``val`` renders through
-    (``HeadLaunches`` on that head).  The trainer runs unchanged."""
+    (``HeadLaunches`` on that head, active in ``val`` alone, so that the
+    steps and their times run untraced).  The trainer runs unchanged."""
 
     def __enter__(self):
         from gdb_nerf_tpu_torch.train.trainer import Trainer
 
-        self.records, self._saved = [], (Trainer.train_epoch, Trainer.train_step)
-        epoch_fn, step_fn = self._saved
+        self.records = []
+        self._saved = (Trainer.train_epoch, Trainer.train_step, Trainer.val)
+        epoch_fn, step_fn, val_fn = self._saved
         records = self.records
 
         def record_of(trainer):
@@ -2187,7 +2215,7 @@ class observed_trainers:
                                         for k, v in trainer.network.state_dict().items()},
                        "epochs": [], "losses": [], "views": [],
                        "val_launches": HeadLaunches((trainer.network if trainer.mixed is None
-                                                     else trainer.mixed.compute).nerf).__enter__()}
+                                                     else trainer.mixed.compute).nerf)}
                 records.append(rec)
             rec["epochs"].append(epoch)
             return epoch_fn(trainer, epoch, loader, recorder)
@@ -2200,15 +2228,20 @@ class observed_trainers:
                 rec["views"].append(int(batch["src_views"]["rgb"].shape[1]))
             return stats
 
-        Trainer.train_epoch, Trainer.train_step = train_epoch, train_step
+        def val(trainer, *args, **kwargs):
+            rec = record_of(trainer)
+            if rec is None:
+                return val_fn(trainer, *args, **kwargs)
+            with rec["val_launches"]:
+                return val_fn(trainer, *args, **kwargs)
+
+        Trainer.train_epoch, Trainer.train_step, Trainer.val = train_epoch, train_step, val
         return self
 
     def __exit__(self, *exc):
         from gdb_nerf_tpu_torch.train.trainer import Trainer
 
-        Trainer.train_epoch, Trainer.train_step = self._saved
-        for rec in self.records:
-            rec["val_launches"].__exit__()
+        Trainer.train_epoch, Trainer.train_step, Trainer.val = self._saved
 
 
 class Tee:
@@ -2444,7 +2477,7 @@ def phase_frames(device: str = "cuda") -> list:
                                       ["synthetic_hw", f"[{H},{W}]"])
         row = measure_frame.measure(cfg, device, name=name)
         rows.append(row)
-        if row["head_launches"] <= 0 or row["hw"] != [H, W]:
+        if row["head_launches_per_frame"] <= 0 or row["hw"] != [H, W]:
             raise AssertionError(f"13: measure_frame {name} {H}x{W} {dt}: {row}")
     print(f"[frames] phase 13 took {time.time() - t0:.1f} s")
     print(json.dumps({"frames": rows}))
@@ -2531,7 +2564,7 @@ def main() -> None:
                                      "evaluate": finetune[name]["launches_evaluate"]}
                               for name, *_ in FINETUNE},
         "launches_frame": {f"{r['config']} {r['hw'][0]}x{r['hw'][1]} {r['dtype']}":
-                           r["head_launches"] for r in frames},
+                           r["head_launches_per_frame"] for r in frames},
     }, *convs, *gathers, *probes]
     for k in kernels:
         if k["launches"] <= 0:

@@ -8,6 +8,10 @@ images, and batches are collated into stacked numpy arrays (channels-last)
 ready for device transfer.  Threads (not processes) are the right tool
 here: cv2.imread and np ops release the GIL, and the arrays go straight to
 the device without pickling.
+
+The consumer's wait for a batch is the span ``loader.wait`` and the load and
+collate of one batch the span ``loader.batch`` (``runtime/tracing.py``; the
+producer's spans go to the recording of the thread that turned tracing on).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import Any
 import numpy as np
 
 from gdb_nerf_tpu_torch.datasets import samplers as S
+from gdb_nerf_tpu_torch.runtime import tracing
 
 _DATASETS: dict[str, str] = {
     "datasets.dataloader.dtu": "gdb_nerf_tpu_torch.datasets.dtu",
@@ -80,7 +85,9 @@ class DataLoader:
     def __iter__(self):
         if self.num_workers == 0:
             for batch_spec in self.batch_sampler:
-                yield collate([self._load(s) for s in batch_spec])
+                with tracing.span("loader.wait", False), tracing.span("loader.batch", False):
+                    batch = collate([self._load(s) for s in batch_spec])
+                yield batch
             return
 
         # Pipelined: a producer thread walks the sampler and fans item loads
@@ -93,14 +100,16 @@ class DataLoader:
         def produce():
             with ThreadPoolExecutor(self.num_workers) as pool:
                 for batch_spec in self.batch_sampler:
-                    items = list(pool.map(self._load, batch_spec))
-                    q.put(collate(items))
+                    with tracing.span("loader.batch", False):
+                        batch = collate(list(pool.map(self._load, batch_spec)))
+                    q.put(batch)
             q.put(done)
 
         t = threading.Thread(target=produce, daemon=True)
         t.start()
         while True:
-            item = q.get()
+            with tracing.span("loader.wait", False):
+                item = q.get()
             if item is done:
                 break
             yield item

@@ -31,8 +31,10 @@ import torch
 import torch.nn.functional as F
 
 from gdb_nerf_tpu_torch.kernels.build import CSRC, build_library
+from gdb_nerf_tpu_torch.runtime import tracing
 
 SOURCE = CSRC / "bundle_head.cu"
+LAUNCHES = "bundle_head.launches"  # the tracing counter of the kernel's launches
 
 # Widths the kernel is compiled for: the dtu_eval head (feature 16 + rgb 3,
 # payload 3*2*2 + 19, voxel 8, hidden 64).  Must match csrc/bundle_head.cu.
@@ -113,10 +115,10 @@ def pack_weights(head) -> torch.Tensor:
 
 
 class BundleHeadKernel:
-    """Wrapper of the CUDA bundle-head kernel, with a count of its launches."""
+    """Wrapper of the CUDA bundle-head kernel.  Each launch adds one to the
+    counter ``LAUNCHES`` of ``runtime/tracing.py`` while tracing is on."""
 
     def __init__(self):
-        self.launches = 0
         self.build_log = ""
         self._lib = None
 
@@ -180,5 +182,5 @@ class BundleHeadKernel:
             )
         if err != 0:
             raise RuntimeError(f"bundle_head kernel launch failed: cudaError {err}")
-        self.launches += 1
+        tracing.count(LAUNCHES)
         return sigma, feat

@@ -18,10 +18,11 @@ import torch.nn as nn
 
 from gdb_nerf_tpu_torch.models.cost_reg_net import CostRegNet, CostRegNetSmall
 from gdb_nerf_tpu_torch.models.nerf_head import StageNeRF
-from gdb_nerf_tpu_torch.ops import camera, cost_volume
+from gdb_nerf_tpu_torch.ops import camera, cost_volume, render
 from gdb_nerf_tpu_torch.ops.bundles import l2norm
 from gdb_nerf_tpu_torch.ops.grid_sample import grid_sample_2d_nchw, grid_sample_3d_ncdhw
 from gdb_nerf_tpu_torch.ops.resize import resize_bilinear_nchw
+from gdb_nerf_tpu_torch.runtime.tracing import spanned
 
 
 def _stage_sample_features(feat_volume, img_feat_rgb, world, uvd, src_exts, src_ints_stage,
@@ -142,6 +143,7 @@ class DepthNet(nn.Module):
                 depth_range = self.next_depth_range(idx, ci)
         return out
 
+    @spanned("model.cost_volume")
     def stage_volume(self, idx, ms_feats, src_exts, src_ints, tar_exts, tar_ints, depth_range,
                      hw):
         """Stage ``idx``'s hypotheses (B, D, Hi, Wi) and its variance cost
@@ -158,6 +160,7 @@ class DepthNet(nn.Module):
         )
         return depth_values, volume
 
+    @spanned("model.cost_reg")
     def stage_regularize(self, idx, volume, depth_values):
         """Stage ``idx``'s U-Net over ``volume`` and the depth it regresses:
         feat_volume (B, voxel, D, Hi, Wi), depth (B, Hi, Wi), ci and vol_range
@@ -204,7 +207,5 @@ class DepthNet(nn.Module):
             feat_volume, img_feat_rgb, world, uvd, src_exts, src_ints_stage, tar_exts)
         sigma, rgb = self.nerfs[idx](vox_feat, feat_rgb_dir)
         alpha = 1.0 - torch.exp(-sigma)  # (B, N, S)
-        trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
-        trans = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], dim=-1)
-        rgb_map = ((alpha * trans)[..., None] * rgb).sum(dim=-2)
+        rgb_map = ((alpha * render.transmittance(alpha))[..., None] * rgb).sum(dim=-2)
         return rgb_map.reshape(B, Hi, Wi, 3)

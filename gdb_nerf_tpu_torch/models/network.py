@@ -32,7 +32,10 @@ forward runs: ``features`` (1, FPN), ``depth_net`` (2, MVS:
 ``DepthNet.stage_volume`` and ``stage_regularize`` per cascade stage),
 ``bundle_windows`` (3), ``texture_pyramid`` (4), then per row slab
 (``slabs``) ``sample`` and ``encode`` (5) and ``head_composite`` (6), and
-``decode`` (7).
+``decode`` (7).  Each of those stages is a span of ``runtime/tracing.py``
+(``model.features``, ``model.cost_volume``, ``model.cost_reg``,
+``model.windows``, ``model.pyramid``, ``model.sample``, ``model.encode``,
+``model.head``, ``model.decode``), which records only while tracing is on.
 
 ``spatial_group`` (the JAX Network's ``spatial_axis``): when set, each rank
 of that process group samples, encodes, runs the head on and composites
@@ -65,6 +68,7 @@ from gdb_nerf_tpu_torch.models.nerf_head import BundleNeRF
 from gdb_nerf_tpu_torch.ops import bundles, mip, render
 from gdb_nerf_tpu_torch.ops.resize import resize_bilinear_nchw, resize_nearest
 from gdb_nerf_tpu_torch.parallel.collectives import gather_rows
+from gdb_nerf_tpu_torch.runtime.tracing import spanned
 
 
 class Frame(NamedTuple):
@@ -273,6 +277,7 @@ class Network(nn.Module):
                      batch["tar_views"]["extrinsics"], batch["tar_views"]["intrinsics"],
                      batch["near_far"])
 
+    @spanned("model.features")
     def features(self, frame: Frame) -> list[torch.Tensor]:
         """Stage 1: the FPN levels [(B, V, c, h, w)], coarsest first, in the
         compute dtype."""
@@ -280,6 +285,7 @@ class Network(nn.Module):
         return [f.reshape(B, V, *f.shape[1:])
                 for f in self.feature_net(frame.src_nchw.to(self.compute_dtype))]
 
+    @spanned("model.windows")
     def bundle_windows(self, frame: Frame, mvs: dict) -> Windows:
         """Stage 3: the ray bundles and the last MVS stage's depth windows,
         volume and depth at bundle resolution."""
@@ -297,6 +303,7 @@ class Network(nn.Module):
                                       frame.near_far[:, 0], frame.near_far[:, 1], b)
         return Windows(rb, depth_range, vol_range, mvs["volumes"][-1], mvs_depth)
 
+    @spanned("model.pyramid")
     def texture_pyramid(self, frame: Frame, ms_feats: list) -> list[torch.Tensor]:
         """Stage 4: the mip pyramid of the (B*V, F, H/b, W/b) source feature
         ++ rgb maps, float32 from compute-dtype values."""
@@ -323,6 +330,7 @@ class Network(nn.Module):
                             windows.feat_volume))
         return out
 
+    @spanned("model.sample")
     def sample(self, slab: Slab) -> bundles.BundleSamples:
         """Stage 5a: a slab's samples inside its depth windows."""
         return bundles.sample_bundles(
@@ -330,6 +338,7 @@ class Network(nn.Module):
             self.global_num_depth, bool(self.mvs_inv_depth[-1]), self.is_adaptive,
         )
 
+    @spanned("model.encode")
     def encode(self, frame: Frame, slab: Slab, samples, pyramid) -> bundles.EncodedSamples:
         """Stage 5b: the samples' features from the source views and the
         volume."""
@@ -338,6 +347,7 @@ class Network(nn.Module):
             frame.src_exts, frame.src_ints, self.max_mipmap_level,
         )
 
+    @spanned("model.head")
     def head_composite(self, samples, enc, train: bool = False) -> tuple:
         """Stage 6: the NeRF head on every sample and the composite along
         each bundle.  Returns feat_map (B, Hc, W, C) float32, depth_map and
@@ -365,6 +375,7 @@ class Network(nn.Module):
             out = (*out, samples.samples_per_bundle.to(torch.int32))
         return out
 
+    @spanned("model.decode")
     def decode(self, frame: Frame, windows: Windows, outs: list) -> dict:
         """Stage 7: the slabs' bundle maps joined (and gathered over a spatial
         group), the RDN's coarse path plus the member rays' RGB, and the

@@ -9,6 +9,20 @@ from __future__ import annotations
 
 import torch
 
+from gdb_nerf_tpu_torch.runtime import tracing
+
+
+def transmittance(alpha: torch.Tensor) -> torch.Tensor:
+    """Exclusive transmittance T_i = prod_{j<i} (1 - alpha_j + 1e-10) along
+    the last axis.  ``torch.cumprod``'s backward reads into the host whether
+    its input holds a zero, a host wait on CUDA: counted here, where the
+    graph records it, as ``host_syncs.cumprod_backward``."""
+    x = 1.0 - alpha + 1e-10
+    if x.requires_grad:
+        tracing.deferred_wait("cumprod_backward", x.device)
+    trans = torch.cumprod(x, dim=-1)
+    return torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], dim=-1)
+
 
 def weights_from_sigma(sigma: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Normalized compositing weights (..., S) from densities (..., S).
@@ -18,9 +32,7 @@ def weights_from_sigma(sigma: torch.Tensor, valid: torch.Tensor) -> torch.Tensor
     L1-normalized per ray with a 1e-6 floor.
     """
     alpha = (1.0 - torch.exp(-sigma)) * valid.to(sigma.dtype)
-    trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
-    trans = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], dim=-1)
-    weights = alpha * trans
+    weights = alpha * transmittance(alpha)
     wsum = torch.clamp_min(weights.sum(dim=-1, keepdim=True), 1e-6)
     return weights / wsum
 

@@ -4,8 +4,9 @@ Port of ``gdb_nerf_tpu/runtime/renderer.py::Renderer``.  ``to_device``
 moves the network-input slice of a loader batch (numpy, channels-last) to
 tensors on an explicit device; the transfer stays outside any timed region,
 as in the reference protocol.  ``Renderer`` runs the eval forward under
-``torch.inference_mode`` and times it with CUDA events, beside the host
-time it takes to queue the forward.
+``torch.inference_mode`` (the span ``render`` of ``runtime/tracing.py``)
+and times it with CUDA events, beside the host time it takes to queue the
+forward.
 
 Float32 numerics are set explicitly: matmuls never use TF32, and cuDNN
 convolutions use TF32 only when the renderer is built with ``tf32=True``
@@ -19,12 +20,17 @@ import time
 import numpy as np
 import torch
 
+from gdb_nerf_tpu_torch.runtime import tracing
+
 
 def to_device(batch: dict, device) -> dict:
-    """The device-side slice of a loader batch, as float32 tensors."""
+    """The device-side slice of a loader batch, as float32 tensors (each a
+    pageable copy, which the host waits for: ``sync.to_device``)."""
 
     def t(x):
-        return torch.as_tensor(np.asarray(x, np.float32)).to(device)
+        x = torch.as_tensor(np.asarray(x, np.float32))
+        with tracing.host_wait("to_device", device):
+            return x.to(device)
 
     sv, tv = batch["src_views"], batch["tar_views"]
     return {
@@ -53,8 +59,9 @@ class Renderer:
         self.network.nerf.packed_weights()
 
     def render(self, dev_batch: dict):
-        """One eval forward on an already-transferred batch -> (ret, mvs_depths)."""
-        with torch.inference_mode():
+        """One eval forward on an already-transferred batch -> (ret, mvs_depths);
+        the span ``render``, a request's root."""
+        with tracing.span("render"), torch.inference_mode():
             ret, mvs_depths, _ = self.network(dev_batch)
         return ret, mvs_depths
 
@@ -76,7 +83,8 @@ class Renderer:
             out = self.render(dev_batch)
             enqueue_ms = (time.perf_counter() - t0) * 1e3
             end.record()
-            end.synchronize()
+            with tracing.host_wait("render_timed", self.device):
+                end.synchronize()
             return out, start.elapsed_time(end), enqueue_ms
         t0 = time.perf_counter()
         out = self.render(dev_batch)

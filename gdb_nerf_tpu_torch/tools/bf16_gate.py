@@ -49,6 +49,8 @@ import torch
 from gdb_nerf_tpu_torch.config import load_cfg
 from gdb_nerf_tpu_torch.datasets import make_data_loader
 from gdb_nerf_tpu_torch.eval import metrics
+from gdb_nerf_tpu_torch.kernels.bundle_head import LAUNCHES
+from gdb_nerf_tpu_torch.runtime import tracing
 from gdb_nerf_tpu_torch.runtime.registry import make_network
 from gdb_nerf_tpu_torch.runtime.renderer import to_device
 from gdb_nerf_tpu_torch.tools import measure_common as common
@@ -137,12 +139,10 @@ def gate(cfg, state: dict, device, scenes: int) -> dict:
     for dt in ("float32", "bfloat16"):
         renderer = common.renderer_for(SimpleNamespace(**{**vars(cfg), "compute_dtype": dt}),
                                        device, state)
-        kernel = renderer.network.nerf.kernel
-        kernel.launches = 0
-        renders[dt] = [
-            np.clip(renderer.render(to_device(b, device))[0]["rgb"].float().cpu().numpy()[0], 0, 1)
-            for b in batches]
-        launches[dt] = kernel.launches
+        with tracing.recording() as rec:
+            renders[dt] = [np.clip(renderer.render(to_device(b, device))[0]["rgb"]
+                                   .float().cpu().numpy()[0], 0, 1) for b in batches]
+        launches[dt] = rec.counter(LAUNCHES)
         del renderer
     rows, targets = [], [np.asarray(b["tar_views"]["rgb"][0], np.float32) for b in batches]
     for i, gt in enumerate(targets):

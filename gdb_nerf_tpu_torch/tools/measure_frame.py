@@ -16,10 +16,12 @@ measures the same), and reports the best round's ms a frame and fps.
 Beside it: ``--n`` forwards through ``Renderer.render_timed`` with the
 stream free, as a request runs, their mean latency and the host's time to
 enqueue one; the peak device memory (``torch.cuda.max_memory_allocated``);
-H x W, V and S; the bundle head's kernel launches over the tool's run and
-per forward; and the card (``nvidia-smi``'s name and power limit).  The
-last line is the result as JSON.  On the CPU every time is the host clock
-and the head runs its plain version.
+H x W, V and S; the bundle head's kernel launches in the first (warm-up)
+forward, counted under ``tracing.recording()`` so that no span runs in the
+timed forwards, and the number of forwards the tool ran; and the card
+(``nvidia-smi``'s name and power limit).  The last line is the result as
+JSON.  On the CPU every time is the host clock and the head runs its plain
+version.
 
 It runs on ``cuda`` and stops without a GPU; ``--device cpu`` runs on the
 CPU.  Not ported: ``--pallas`` (the head's kernel always runs on CUDA
@@ -36,7 +38,9 @@ import os
 import torch
 
 from gdb_nerf_tpu_torch.config import load_cfg
+from gdb_nerf_tpu_torch.kernels.bundle_head import LAUNCHES
 from gdb_nerf_tpu_torch.kernels.measure import timed_ms
+from gdb_nerf_tpu_torch.runtime import tracing
 from gdb_nerf_tpu_torch.runtime.registry import make_network
 from gdb_nerf_tpu_torch.runtime.renderer import Renderer, to_device
 from gdb_nerf_tpu_torch.tools import ab_common
@@ -62,14 +66,14 @@ def measure(cfg, device, n: int = 8, name: str = "dtu_eval") -> dict:
     dev_batch = to_device(batch, device)
     B, V, H, W, _ = batch["src_views"]["rgb"].shape
     S = cfg.nerf.max_num_samples
-    kernel = renderer.network.nerf.kernel
-    kernel.launches = 0
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
     print(f"device: {device} ({smi})  {name} {H}x{W}  V={V}  S={S}  "
           f"dtype={cfg.compute_dtype}  n={n}", flush=True)
-    ret, _ = renderer.render(dev_batch)  # warm-up: kernels load, cuDNN picks its algorithms
+    with tracing.recording() as rec:  # warm-up: kernels load, cuDNN picks its algorithms
+        ret, _ = renderer.render(dev_batch)
+    launches = rec.counter(LAUNCHES)
     if not torch.isfinite(ret["rgb"]).all() or tuple(ret["rgb"].shape) != (B, H, W, 3):
         raise RuntimeError(f"the forward gave rgb {tuple(ret['rgb'].shape)}, finite: "
                            f"{bool(torch.isfinite(ret['rgb']).all())}")
@@ -89,15 +93,15 @@ def measure(cfg, device, n: int = 8, name: str = "dtu_eval") -> dict:
     result = {"config": name, "dtype": cfg.compute_dtype, "hw": [H, W], "views": V,
               "samples": S, "n": n, "rounds": ROUNDS, "ms_per_frame": best,
               "fps": 1e3 / best, "rounds_ms": rounds, "latency_ms": latency,
-              "enqueue_ms": enqueue, "peak_gib": peak, "head_launches": kernel.launches,
-              "frames": frames, "head_launches_per_frame": kernel.launches / frames,
+              "enqueue_ms": enqueue, "peak_gib": peak, "frames": frames,
+              "head_launches_per_frame": launches,
               "device": str(device), "card": smi}
     print(f"dtype={cfg.compute_dtype}: {best:.3f} ms/frame ({1e3 / best:.2f} fps) at {H}x{W}, "
           f"V={V}, S={S}, best of {ROUNDS} rounds of {n} back to back (device time, stream "
           f"held); a request {latency:.3f} ms, host enqueue {enqueue:.3f} ms (stream free, mean "
           f"of {n}); peak memory "
           + (f"{peak:.2f} GiB" if peak is not None else "not measured on the CPU")
-          + f"; bundle-head kernel launches {kernel.launches} over {frames} forwards on {smi}",
+          + f"; bundle-head kernel launches {launches} a forward, {frames} forwards on {smi}",
           flush=True)
     print(json.dumps({"measure_frame": result}), flush=True)
     return result

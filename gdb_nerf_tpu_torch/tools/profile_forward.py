@@ -25,8 +25,10 @@ and ``busy_ms``, the device time of a repeat with the stream held by a spin
 kernel while the host queues (``kernels/measure.py::timed_ms``: the device's
 work alone).  Then the stages' sums beside the whole forward's
 ``Renderer.render_timed`` latency and enqueue time (the mean over
-``--iters`` requests after a first one), the bundle head's kernel launches,
-and one JSON line of the table.  On the CPU every time is the host clock.
+``--iters`` requests after a first one), the bundle head's kernel launches
+in the stages' first calls (counted under ``tracing.recording()``, which
+the timed repeats run without), and one JSON line of the table.  On the
+CPU every time is the host clock.
 
     python -m gdb_nerf_tpu_torch.tools.profile_forward [--size H W] [--views V]
         [--iters N] [--samples S] [--dtype bfloat16|float32] [--device cuda|cpu]
@@ -43,7 +45,9 @@ import time
 
 import torch
 
+from gdb_nerf_tpu_torch.kernels.bundle_head import LAUNCHES
 from gdb_nerf_tpu_torch.kernels.measure import timed_ms
+from gdb_nerf_tpu_torch.runtime import tracing
 from gdb_nerf_tpu_torch.runtime.renderer import to_device
 from gdb_nerf_tpu_torch.tools import ab_common
 from gdb_nerf_tpu_torch.tools import measure_common as common
@@ -131,12 +135,13 @@ def profile(renderer, dev_batch: dict, iters: int = 5) -> dict:
     """Time each stage of ``renderer``'s network on ``dev_batch`` (see the
     module's docstring) and the whole forward; returns the table."""
     device = renderer.device
-    kernel = renderer.network.nerf.kernel
-    before = kernel.launches
-    table = []
+    table, launches = [], 0
 
     def step(name, fn):
-        out = fn()
+        nonlocal launches
+        with tracing.recording() as rec:  # the first call, untimed: K1's launches
+            out = fn()
+        launches += rec.counter(LAUNCHES)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         table.append({"stage": name, **time_repeats(fn, device, iters)})
@@ -147,7 +152,6 @@ def profile(renderer, dev_batch: dict, iters: int = 5) -> dict:
 
     with torch.inference_mode():
         run_stages(renderer.network, dev_batch, step)
-    launches = kernel.launches - before
     forward = [renderer.render_timed(dev_batch)[1:] for _ in range(iters + 1)][1:]
     fwd_ms = sum(t[0] for t in forward) / len(forward)
     fwd_enqueue = sum(t[1] for t in forward) / len(forward)
@@ -188,7 +192,8 @@ def main(argv=None) -> dict:
     print(f"device: {device} ({smi})  {CONFIG} {H}x{W}  V={args.views}  S={args.samples}  "
           f"dtype={args.dtype}  iters={args.iters}", flush=True)
     result = profile(renderer, dev_batch, args.iters)
-    print(f"bundle-head kernel launches in the stages: {result['head_launches']}", flush=True)
+    print(f"bundle-head kernel launches in the stages' first calls: {result['head_launches']}",
+          flush=True)
     result = {"config": CONFIG, "size": [H, W], "views": args.views, "samples": args.samples,
               "dtype": args.dtype, "device": str(device), "card": smi, "iters": args.iters,
               "rounds": ROUNDS, **result}

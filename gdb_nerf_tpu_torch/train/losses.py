@@ -11,6 +11,11 @@ Port of ``gdb_nerf_tpu/train/losses.py``:
     weights (1.0, 0.1, 0.05);
   * ``smooth_l1_depth``: masked multiscale Smooth-L1 depth (monitoring).
 
+The VGG16 weights, the ImageNet constants and the SSIM window are copied
+from host memory at every call; on a CUDA device each copy is a host wait,
+recorded by ``runtime/tracing.py`` as ``sync.vgg_weights``,
+``sync.vgg_norm`` and ``sync.ssim_window``.
+
 Images are channels-last (B, H, W, 3) tensors, as in the JAX package.
 """
 
@@ -22,6 +27,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from gdb_nerf_tpu_torch.runtime import tracing
 
 
 def _gaussian_window(size: int = 7, sigma: float = 1.5) -> np.ndarray:
@@ -39,7 +46,8 @@ def _filter(img: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
     """Depthwise 2D filter of (B, H, W, C) with a (k, k) window, zero padding k//2."""
     k = window.shape[0]
     C = img.shape[-1]
-    weight = window.to(img)[None, None].expand(C, 1, k, k)
+    with tracing.host_wait("ssim_window", img.device):
+        weight = window.to(img)[None, None].expand(C, 1, k, k)
     out = F.conv2d(img.permute(0, 3, 1, 2), weight, padding=k // 2, groups=C)
     return out.permute(0, 2, 3, 1)
 
@@ -93,12 +101,15 @@ def vgg_perceptual(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
     w = _vgg_weights()
     if w is None:
         return torch.zeros((), dtype=img1.dtype, device=img1.device)
-    mean = torch.tensor(_VGG_MEAN, dtype=img1.dtype, device=img1.device)[:, None, None]
-    std = torch.tensor(_VGG_STD, dtype=img1.dtype, device=img1.device)[:, None, None]
+    with tracing.host_wait("vgg_norm", img1.device, 2):
+        mean = torch.tensor(_VGG_MEAN, dtype=img1.dtype, device=img1.device)[:, None, None]
+        std = torch.tensor(_VGG_STD, dtype=img1.dtype, device=img1.device)[:, None, None]
 
     def conv(li):
         kernel = torch.from_numpy(w[f"conv{li}_w"].transpose(3, 2, 0, 1).copy())
-        return kernel.to(img1), torch.from_numpy(w[f"conv{li}_b"]).to(img1)
+        bias = torch.from_numpy(w[f"conv{li}_b"])
+        with tracing.host_wait("vgg_weights", img1.device, 2):
+            return kernel.to(img1), bias.to(img1)
 
     def features(x):
         h = (x.permute(0, 3, 1, 2) - mean) / std

@@ -29,10 +29,21 @@ import numpy as np
 import torch
 
 from gdb_nerf_tpu_torch.models.layers import set_batchnorm_group
+from gdb_nerf_tpu_torch.runtime import tracing
 from gdb_nerf_tpu_torch.runtime.renderer import Renderer, set_float32_numerics, to_device
 from gdb_nerf_tpu_torch.train.mixed import MixedPrecision
 from gdb_nerf_tpu_torch.train.optim import make_optimizer
 from gdb_nerf_tpu_torch.train.step import make_train_step, to_device_train
+
+
+def read_stats(stats: dict) -> dict:
+    """The step's stats as floats; reading each from the device is a host
+    wait (``sync.stats``)."""
+    out = {}
+    for k, v in stats.items():
+        with tracing.host_wait("stats", v.device):
+            out[k] = float(v)
+    return out
 
 
 class Trainer:
@@ -64,18 +75,26 @@ class Trainer:
         return self.scheduler.last_epoch
 
     def train_step(self, batch: dict) -> dict:
-        """One step on a loader batch; returns the stats as floats."""
-        dev_batch = to_device_train(batch, self.device)
-        if self.device.type != "cuda":
-            return {k: float(v) for k, v in self.step_fn(dev_batch).items()}
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        stats = self.step_fn(dev_batch)
-        end.record()
-        end.synchronize()
-        self.step_ms.append(start.elapsed_time(end))
-        return {k: float(v) for k, v in stats.items()}
+        """One step on a loader batch; returns the stats as floats.  The
+        span ``train.step`` (a step's root) around ``train/step.py``'s
+        phases and ``train.readback``: the wait for the step's end and the
+        stats read into Python, each a host wait."""
+        with tracing.span("train.step"):
+            dev_batch = to_device_train(batch, self.device)
+            timed = self.device.type == "cuda"
+            if timed:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            stats = self.step_fn(dev_batch)
+            if timed:
+                end.record()
+            with tracing.span("train.readback"):
+                if timed:
+                    with tracing.host_wait("step_end", self.device):
+                        end.synchronize()
+                    self.step_ms.append(start.elapsed_time(end))
+                return read_stats(stats)
 
     def train_epoch(self, epoch: int, data_loader, recorder) -> None:
         self.network.train()

@@ -39,8 +39,9 @@ import torch
 import chip_smoke
 from gdb_nerf_tpu.config import load_cfg
 from gdb_nerf_tpu.datasets import make_data_loader
-from gdb_nerf_tpu_torch.kernels.bundle_head import bundle_head_reference
+from gdb_nerf_tpu_torch.kernels.bundle_head import LAUNCHES, bundle_head_reference
 from gdb_nerf_tpu_torch.models.nerf_head import BundleNeRF
+from gdb_nerf_tpu_torch.runtime import tracing
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -267,14 +268,15 @@ def test_wrapper_takes_plain_path_on_cpu_only(rng):
     vox = torch.from_numpy(rng.standard_normal((300, 8)).astype(np.float32))
     payload = torch.from_numpy(rng.uniform(0, 1, (3, 300, 31)).astype(np.float32))
     frd = torch.from_numpy(rng.standard_normal((3, 300, 23)).astype(np.float32))
-    sigma, feat = head(vox, payload, frd)
+    with tracing.recording() as rec:
+        sigma, feat = head(vox, payload, frd)
     s_ref, f_ref = bundle_head_reference(head, vox, payload, frd)
     assert torch.equal(sigma, s_ref) and torch.equal(feat, f_ref)
-    assert head.kernel.launches == 0
+    assert rec.counter(LAUNCHES) == 0
     # Off the CPU there is no plain fallback: the wrapper launches or raises.
-    with pytest.raises(ValueError, match="CUDA"):
+    with tracing.recording() as rec, pytest.raises(ValueError, match="CUDA"):
         head(vox.to("meta"), payload.to("meta"), frd.to("meta"))
-    assert head.kernel.launches == 0
+    assert rec.counter(LAUNCHES) == 0
 
 
 def test_ab_bundle_head_needs_a_gpu_and_imports_the_earlier_tree(tmp_path, monkeypatch):

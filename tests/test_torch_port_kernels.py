@@ -16,12 +16,14 @@ import pytest
 import torch
 
 from gdb_nerf_tpu_torch.kernels import gather, plane_ops
-from gdb_nerf_tpu_torch.kernels.bundle_head import BundleHeadKernel, bundle_head_reference
+from gdb_nerf_tpu_torch.kernels.bundle_head import (LAUNCHES, BundleHeadKernel,
+                                                    bundle_head_reference)
 from gdb_nerf_tpu_torch.kernels.gather import GatherKernels
 from gdb_nerf_tpu_torch.kernels.plane_conv import PlaneConvKernels
 from gdb_nerf_tpu_torch.kernels.plane_ops import PlaneOpsKernels
 from gdb_nerf_tpu_torch.models.layers import cast_weights
 from gdb_nerf_tpu_torch.models.nerf_head import BundleNeRF
+from gdb_nerf_tpu_torch.runtime import tracing
 from gdb_nerf_tpu_torch.runtime.renderer import set_float32_numerics
 from gdb_nerf_tpu_torch.tools import microbench_conv, microbench_gather, probe_ops
 
@@ -74,9 +76,10 @@ def test_kernel_matches_plain_version(request, V, n, dtype):
     head = request.getfixturevalue("head" if dtype == torch.float32 else "bf16_head")
     kernel = BundleHeadKernel()
     vox, payload, frd = inputs(n, V, dtype)
-    sigma, feat = kernel(head, vox, payload, frd)
+    with tracing.recording() as rec:
+        sigma, feat = kernel(head, vox, payload, frd)
     torch.cuda.synchronize()
-    assert kernel.launches == 1
+    assert rec.counter(LAUNCHES) == 1
     assert sigma.dtype == torch.float32 and feat.dtype == dtype
     s_ref, f_ref = bundle_head_reference(head, vox, payload, frd)
     if dtype == torch.float32:
@@ -104,12 +107,12 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(head):
         "one on the CPU": (vox.cpu(), payload, frd),
     }
     for what, args in bad.items():
-        with pytest.raises(ValueError):
+        with tracing.recording() as rec, pytest.raises(ValueError):
             kernel.launch(w, *args)
-        assert kernel.launches == 0, what
-    with pytest.raises(ValueError):
+        assert rec.counter(LAUNCHES) == 0, what
+    with tracing.recording() as rec, pytest.raises(ValueError):
         kernel.launch(w[:-1], vox, payload, frd)
-    assert kernel.launches == 0
+    assert rec.counter(LAUNCHES) == 0
 
 
 @pytest.fixture

@@ -33,7 +33,9 @@ import numpy as np
 import pytest
 import torch
 
+from gdb_nerf_tpu_torch.kernels.bundle_head import LAUNCHES
 from gdb_nerf_tpu_torch.models.network import Network
+from gdb_nerf_tpu_torch.runtime import tracing
 from gdb_nerf_tpu_torch.utils.convert import state_dict_from_jax
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "dtu_eval_golden.npz")
@@ -62,8 +64,9 @@ def test_port_matches_golden_render_at_dtu_eval_widths():
         "tar_views": {"extrinsics": g["batch/tar_ext"], "intrinsics": g["batch/tar_int"]},
         "near_far": g["batch/near_far"],
     })
-    ret, _, _ = net(batch)
-    assert net.nerf.kernel.launches == 0  # CPU tensors take the plain path
+    with tracing.recording() as rec:
+        ret, _, _ = net(batch)
+    assert rec.counter(LAUNCHES) == 0  # CPU tensors take the plain path
     rgb = np.clip(ret["rgb"].numpy(), 0.0, 1.0)
     agree = psnr(rgb, np.clip(g["golden/rgb"], 0.0, 1.0))
     assert agree > 40.0, f"agreement {agree:.1f} dB vs the frozen render"
@@ -291,12 +294,13 @@ def test_bf16_network_casts_its_feature_path_once(rng, started_early, beside_the
     assert all(dt == torch.bfloat16 for k, dt in floats.items() if k not in expect_fp32)
     batch = torch_batch(small_batch(rng))
     ret32, _, _ = net32(batch)
-    ret16, _, _ = net16(batch)
+    with tracing.recording() as rec:
+        ret16, _, _ = net16(batch)
     for key, v in ret16.items():
         assert v.dtype == torch.float32 and torch.isfinite(v).all(), key
     agree = psnr(ret16["rgb"].numpy(), ret32["rgb"].numpy())
     assert agree >= 45.0, f"bf16 vs float32 rgb {agree:.1f} dB"
-    assert net16.nerf.kernel.launches == 0
+    assert rec.counter(LAUNCHES) == 0
 
 
 

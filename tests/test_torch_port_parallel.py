@@ -180,14 +180,17 @@ def _batchnorm(case, group, rank):
 def _render(case, group):
     """ShardedRenderer's render of the render batch, and the forward of a
     bundle grid of odd height (33 rows)."""
+    from gdb_nerf_tpu_torch.kernels.bundle_head import LAUNCHES
     from gdb_nerf_tpu_torch.models.network import Network
     from gdb_nerf_tpu_torch.parallel import ShardedRenderer
+    from gdb_nerf_tpu_torch.runtime import tracing
     from gdb_nerf_tpu_torch.runtime.renderer import to_device
 
     net = Network(**case["net"], debug_outputs=True)
     net.load_state_dict(case["sd"], strict=True)
     renderer = ShardedRenderer(net, "cpu", group)
-    ret, _ = renderer.render(to_device(case["render_batch"], "cpu"))
+    with tracing.recording() as rec:
+        ret, _ = renderer.render(to_device(case["render_batch"], "cpu"))
     scoped = net.spatial_group is None
     odd = to_device(case["render_batch"], "cpu")
     odd["src_views"]["rgb"] = torch.zeros(1, 2, 66, 64, 3)
@@ -197,7 +200,7 @@ def _render(case, group):
     except ValueError as e:
         raised = str(e)
     return {"ret": {k: v.clone() for k, v in ret.items()}, "odd_height": raised,
-            "launches": net.nerf.kernel.launches,
+            "launches": rec.counter(LAUNCHES),
             "scoped": scoped and net.spatial_group is None}
 
 

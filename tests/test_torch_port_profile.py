@@ -245,14 +245,14 @@ def test_measure_frame_times_frames_on_cpu(monkeypatch):
     dtu_eval forward in bf16 (the tool's default) on the synthetic loader's
     first request, its ms a frame the best of its rounds, the host's
     enqueue beside a request's latency, the frame's H x W, V and S, the
-    head's launches (0: the plain head on the CPU) over every forward it
-    ran, and its JSON line; with ``--device cuda`` and no GPU it stops."""
+    head's launches (0: the plain head on the CPU) in its warm-up forward,
+    the number of forwards it ran, and its JSON line; with ``--device cuda`` and no GPU it stops."""
     out = run_main(measure_frame.main, ["--device", "cpu", "--n", "2", "--set", "synthetic_hw",
                                         "[64,64]"])
     result = json_line(out, "measure_frame")
     assert set(result) == {"config", "dtype", "hw", "views", "samples", "n", "rounds",
                            "ms_per_frame", "fps", "rounds_ms", "latency_ms", "enqueue_ms",
-                           "peak_gib", "head_launches", "frames", "head_launches_per_frame",
+                           "peak_gib", "frames", "head_launches_per_frame",
                            "device", "card"}
     assert (result["config"], result["dtype"], result["hw"], result["views"], result["samples"],
             result["n"], result["card"]) == ("dtu_eval", "bfloat16", [64, 64], 3, 3, 2, "cpu")
@@ -262,7 +262,7 @@ def test_measure_frame_times_frames_on_cpu(monkeypatch):
     assert result["latency_ms"] > 0 and result["enqueue_ms"] > 0 and result["peak_gib"] is None
     # one warm-up, each round's n + 1 (timed_ms's own warm-up on the CPU), n requests
     assert result["frames"] == 1 + measure_frame.ROUNDS * 3 + 2
-    assert result["head_launches"] == 0 and "ms/frame" in out
+    assert result["head_launches_per_frame"] == 0 and "ms/frame" in out
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="--device cpu"):
         measure_frame.main(["--device", "cuda", "--n", "2"])
